@@ -1,0 +1,104 @@
+"""Diagnostic surface-water tests (DIAG layer) on integer reflectance.
+
+Port of ``proteus_tpu/models/dswx/diagnostics.py:48-169, 205-248``, the
+exact-rational integer path only: every threshold comparison runs in int32
+as ``q*num OP p*den`` (see ``proteus_tpu.core.thresholds``), which is
+bit-identical to the reference's float64 evaluation, including the int16
+wrap-around of the band sums. The sums are formed in int32 and wrapped
+explicitly, exactly as the CUDA kernel does. Float inputs and thresholds
+that are not exact rationals raise ``NotImplementedError``.
+"""
+
+import torch
+
+from proteus_tpu_torch.core.unported import SCALED_DIAGNOSTICS, not_ported
+from proteus_tpu_torch.host import ExactThresholds, HlsThresholds
+
+_I32 = torch.int32
+
+
+def wrap16(x):
+    """int32 -> the value NumPy's int16 arithmetic would have kept."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _ratio_gt_exact(num, den, p, q):
+    """num/den > p/q with float64-division semantics (num, den: int32)."""
+    qnum = q * num
+    pden = p * den
+    return torch.where(den > 0, qnum > pden,
+                       torch.where(den < 0, qnum < pden, num > 0))
+
+
+def _ratio_lt_exact(num, den, p, q):
+    """num/den < p/q with float64-division semantics."""
+    qnum = q * num
+    pden = p * den
+    return torch.where(den > 0, qnum < pden,
+                       torch.where(den < 0, qnum > pden, num < 0))
+
+
+def exact_pq(field):
+    """(p, q) of an ExactThresholds field; raises if it is not exact."""
+    p, q, exact = field
+    if not exact:
+        raise not_ported(SCALED_DIAGNOSTICS)
+    return p, q
+
+
+def _diag_tests_int(blue, green, red, nir, swir1, swir2,
+                    et: ExactThresholds):
+    b, g, r, n, s1, s2 = (x.to(_I32) for x in
+                          (blue, green, red, nir, swir1, swir2))
+    mndwi_num = wrap16(g - s1)
+    mndwi_den = wrap16(g + s1)
+    mbsrv = wrap16(g + r)
+    mbsrn = wrap16(n + s1)
+    ndvi_num = wrap16(n - r)
+    ndvi_den = wrap16(n + r)
+    # AWEsh * 4 is an exact integer: blue + 2.5g - 1.5*mbsrn - 0.25*s2
+    awesh4 = 4 * b + 10 * g - 6 * mbsrn - s2
+
+    def lt(band, field):
+        p, q = exact_pq(field)
+        return band * q < p
+
+    t1 = _ratio_gt_exact(mndwi_num, mndwi_den, *exact_pq(et.wigt))
+    t2 = mbsrv > mbsrn
+    p, q = exact_pq(et.awgt)
+    t3 = awesh4 * q > 4 * p
+    t4 = (_ratio_gt_exact(mndwi_num, mndwi_den, *exact_pq(et.pswt_1_mndwi))
+          & lt(s1, et.pswt_1_swir1) & lt(n, et.pswt_1_nir)
+          & _ratio_lt_exact(ndvi_num, ndvi_den, *exact_pq(et.pswt_1_ndvi)))
+    t5 = (_ratio_gt_exact(mndwi_num, mndwi_den, *exact_pq(et.pswt_2_mndwi))
+          & lt(b, et.pswt_2_blue) & lt(s1, et.pswt_2_swir1)
+          & lt(s2, et.pswt_2_swir2) & lt(n, et.pswt_2_nir))
+    return t1, t2, t3, t4, t5
+
+
+def compute_diagnostic_tests(blue, green, red, nir, swir1, swir2,
+                             hls_thresholds: HlsThresholds):
+    """The 5-bit diagnostic layer (decimal representation), as int32.
+
+    The counterpart returns uint16; the values are the same. int16 inputs
+    only (the product default); float inputs raise.
+    """
+    if blue.dtype != torch.int16:
+        raise not_ported(SCALED_DIAGNOSTICS)
+    et = ExactThresholds.from_thresholds(hls_thresholds)
+    t1, t2, t3, t4, t5 = _diag_tests_int(blue, green, red, nir, swir1,
+                                         swir2, et)
+    return (t1.to(_I32) + (t2.to(_I32) << 1) + (t3.to(_I32) << 2)
+            + (t4.to(_I32) << 3) + (t5.to(_I32) << 4))
+
+
+def get_binary_representation(diagnostic_layer_decimal, nbits=6):
+    """DIAG decimal (0..32) -> pseudo-binary decimal-digit representation,
+    uint16 (e.g. 0b10110 -> 10110; the fill bit 32 -> 65535)."""
+    d = diagnostic_layer_decimal.to(_I32)
+    out = torch.zeros_like(d)
+    for i in range(min(nbits, 5)):
+        out = out + ((d >> i) & 1) * (10 ** i)
+    if nbits > 5:
+        out = torch.where(((d >> 5) & 1) != 0, 65535, out)
+    return out.to(torch.uint16)

@@ -20,9 +20,12 @@ setup(
     description='TPU-native Dynamic Surface Water Extent (DSWx-HLS) '
                 'framework: JAX/XLA/Pallas science core with a '
                 'self-contained GeoTIFF/COG + geodesy runtime',
-    packages=find_packages(include=['proteus_tpu', 'proteus_tpu.*']),
+    packages=find_packages(include=['proteus_tpu', 'proteus_tpu.*',
+                                    'proteus_tpu_torch',
+                                    'proteus_tpu_torch.*']),
     package_data={'proteus_tpu.config': ['defaults/*.yaml',
-                                         'schemas/*.yaml']},
+                                         'schemas/*.yaml'],
+                  'proteus_tpu_torch.ops': ['csrc/*.cu']},
     python_requires='>=3.9',
     install_requires=['numpy', 'scipy', 'jax', 'pyyaml', 'pillow'],
     entry_points={
