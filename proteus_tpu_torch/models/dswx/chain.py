@@ -12,7 +12,6 @@ from typing import Tuple
 
 import torch
 
-from proteus_tpu_torch.core.unported import COVER_MODE, not_ported
 from proteus_tpu_torch.host import HlsThresholds, constants as C
 from proteus_tpu_torch.models.dswx import masking
 from proteus_tpu_torch.models.dswx.browse import compute_browse_array
@@ -83,7 +82,8 @@ def dswx_chain(blue, green, red, nir, swir1, swir2, fmask, invalid_mask,
                compute_browse: bool = True, compute_stats: bool = True):
     """Run the per-pixel DSWx-HLS chain on the inputs' device.
 
-    blue..swir2 : (H, W) int16 unscaled reflectance.
+    blue..swir2 : (H, W) int16 unscaled reflectance, or float32
+        offset-and-scaled reflectance.
     fmask : (H, W) uint8 HLS Fmask. invalid_mask : (H, W) bool.
     ocean_mask / shadow_layer / landcover_mask : optional (H, W) uint8.
 
@@ -91,8 +91,6 @@ def dswx_chain(blue, green, red, nir, swir1, swir2, fmask, invalid_mask,
     'WTR', 'BWTR', 'CONF', 'CLOUD', optional 'BROWSE' (uint8), and, with
     ``compute_stats``, the counters of ``coverage_counts``.
     """
-    if config.mask_adjacent_to_cloud_mode == 'cover':
-        raise not_ported(COVER_MODE)
     invalid_mask = invalid_mask.to(torch.bool)
     fill = C.UINT8_FILL_VALUE
 

@@ -1,17 +1,27 @@
-"""Diagnostic surface-water tests (DIAG layer) on integer reflectance.
+"""Diagnostic surface-water tests (DIAG layer).
 
-Port of ``proteus_tpu/models/dswx/diagnostics.py:48-169, 205-248``, the
-exact-rational integer path only: every threshold comparison runs in int32
-as ``q*num OP p*den`` (see ``proteus_tpu.core.thresholds``), which is
+Port of ``proteus_tpu/models/dswx/diagnostics.py:48-248``.
+
+int16 bands (the product default): every threshold comparison runs in
+int32 as ``q*num OP p*den`` (see ``proteus_tpu.core.thresholds``), which is
 bit-identical to the reference's float64 evaluation, including the int16
 wrap-around of the band sums. The sums are formed in int32 and wrapped
-explicitly, exactly as the CUDA kernel does. Float inputs and thresholds
-that are not exact rationals raise ``NotImplementedError``.
+explicitly, exactly as the CUDA kernel does. Thresholds that are not exact
+rationals raise ``NotImplementedError`` on this path.
+
+float32 bands (offset-and-scaled inputs): the reference evaluates the
+chain in NumPy float32, one rounding per operation, so this path does the
+same. The MNDWI and NDVI tests divide: tensor division is the correctly
+rounded IEEE quotient on the CPU and on CUDA, so ``num / den OP t32`` is
+NumPy's decision bit for bit, including 0/0 -> NaN -> False and x/0 ->
++-inf. The JAX package decides them without dividing (``core/f32exact.py``)
+only because TPU float32 division is not correctly rounded.
 """
 
+import numpy as np
 import torch
 
-from proteus_tpu_torch.core.unported import SCALED_DIAGNOSTICS, not_ported
+from proteus_tpu_torch.core.unported import INEXACT_THRESHOLDS, not_ported
 from proteus_tpu_torch.host import ExactThresholds, HlsThresholds
 
 _I32 = torch.int32
@@ -42,7 +52,7 @@ def exact_pq(field):
     """(p, q) of an ExactThresholds field; raises if it is not exact."""
     p, q, exact = field
     if not exact:
-        raise not_ported(SCALED_DIAGNOSTICS)
+        raise not_ported(INEXACT_THRESHOLDS)
     return p, q
 
 
@@ -76,18 +86,47 @@ def _diag_tests_int(blue, green, red, nir, swir1, swir2,
     return t1, t2, t3, t4, t5
 
 
+def f32(value):
+    """A threshold as NumPy float32 compares it with float32 bands."""
+    return float(np.float32(value))
+
+
+def _diag_tests_float(blue, green, red, nir, swir1, swir2,
+                      t: HlsThresholds):
+    """float32 tests in NumPy's order, one rounding per operation (no
+    ``alpha=`` adds, which fuse a multiply into the add)."""
+    mndwi = (green - swir1) / (green + swir1)
+    ndvi = (nir - red) / (nir + red)
+    mbsrv = green + red
+    mbsrn = nir + swir1
+    awesh = blue + 2.5 * green - 1.5 * mbsrn - 0.25 * swir2
+    t1 = mndwi > f32(t.wigt)
+    t2 = mbsrv > mbsrn
+    t3 = awesh > f32(t.awgt)
+    t4 = ((mndwi > f32(t.pswt_1_mndwi)) & (swir1 < f32(t.pswt_1_swir1))
+          & (nir < f32(t.pswt_1_nir)) & (ndvi < f32(t.pswt_1_ndvi)))
+    t5 = ((mndwi > f32(t.pswt_2_mndwi)) & (blue < f32(t.pswt_2_blue))
+          & (swir1 < f32(t.pswt_2_swir1)) & (swir2 < f32(t.pswt_2_swir2))
+          & (nir < f32(t.pswt_2_nir)))
+    return t1, t2, t3, t4, t5
+
+
 def compute_diagnostic_tests(blue, green, red, nir, swir1, swir2,
                              hls_thresholds: HlsThresholds):
     """The 5-bit diagnostic layer (decimal representation), as int32.
 
-    The counterpart returns uint16; the values are the same. int16 inputs
-    only (the product default); float inputs raise.
+    The counterpart returns uint16; the values are the same. int16 bands
+    take the exact int32 path, float32 bands the float32 one.
     """
-    if blue.dtype != torch.int16:
-        raise not_ported(SCALED_DIAGNOSTICS)
-    et = ExactThresholds.from_thresholds(hls_thresholds)
-    t1, t2, t3, t4, t5 = _diag_tests_int(blue, green, red, nir, swir1,
-                                         swir2, et)
+    if blue.dtype == torch.int16:
+        et = ExactThresholds.from_thresholds(hls_thresholds)
+        tests = _diag_tests_int(blue, green, red, nir, swir1, swir2, et)
+    elif blue.dtype == torch.float32:
+        tests = _diag_tests_float(blue, green, red, nir, swir1, swir2,
+                                  hls_thresholds)
+    else:
+        raise ValueError(f'bands must be int16 or float32, not {blue.dtype}')
+    t1, t2, t3, t4, t5 = tests
     return (t1.to(_I32) + (t2.to(_I32) << 1) + (t3.to(_I32) << 2)
             + (t4.to(_I32) << 3) + (t5.to(_I32) << 4))
 

@@ -1,19 +1,20 @@
 """Aerosol, landcover, shadow, and cloud masking of the interpreted layer.
 
-Port of ``proteus_tpu/models/dswx/masking.py`` for the 'mask' and 'ignore'
-cloud-adjacent modes on integer reflectance. 'cover' mode (two masked
-binary dilations) and thresholds that are not exact rationals raise
-``NotImplementedError``.
+Port of ``proteus_tpu/models/dswx/masking.py``: every cloud-adjacent mode
+('mask', 'ignore', and 'cover' with its two masked binary dilations), on
+int16 or float32 reflectance. On int16 bands an ``lcmask_nir`` that is not
+an exact rational raises ``NotImplementedError``.
 """
 
 import numpy as np
 import torch
 
-from proteus_tpu_torch.core.unported import (COVER_MODE, SCALED_DIAGNOSTICS,
-                                             not_ported)
+from proteus_tpu_torch.core.unported import INEXACT_THRESHOLDS, not_ported
 from proteus_tpu_torch.host import (SCALAR_MAX_DEN, SCALAR_MAX_NUM,
                                     HlsThresholds, constants as C,
                                     to_exact_fraction)
+from proteus_tpu_torch.models.dswx.diagnostics import f32
+from proteus_tpu_torch.ops.morphology import binary_dilation_masked
 
 
 # copied from proteus_tpu/models/dswx/masking.py:25-41 (numpy only; that
@@ -47,21 +48,18 @@ AEROSOL_INPUT_CLASSES = (
 )
 
 
-def _require_int_nir(nir):
-    if nir.dtype.is_floating_point:
-        raise not_ported(SCALED_DIAGNOSTICS)
-
-
 def apply_aerosol_class_remapping(wtr_1_layer, nir, cloud_layer, fmask,
                                   aerosol_lut):
     """Remap classes to high-confidence water under high aerosol: where
     fmask is in class k's list, WTR-1 equals class k and NIR <= 1000, the
     class becomes high-confidence water and CLOUD bit 3 is set."""
-    _require_int_nir(nir)
     lutv = torch.as_tensor(aerosol_lut, device=fmask.device)[
         fmask.to(torch.int64)]
-    # AEROSOL_REMAPPING_MAX_NIR == 1000.0 exactly
-    nir_ok = nir.to(torch.int32) <= int(C.AEROSOL_REMAPPING_MAX_NIR)
+    if nir.dtype.is_floating_point:
+        nir_ok = nir <= f32(C.AEROSOL_REMAPPING_MAX_NIR)
+    else:
+        # AEROSOL_REMAPPING_MAX_NIR == 1000.0 exactly
+        nir_ok = nir.to(torch.int32) <= int(C.AEROSOL_REMAPPING_MAX_NIR)
     remapped = torch.zeros_like(nir_ok)
     out = wtr_1_layer
     for bit, input_class in enumerate(AEROSOL_INPUT_CLASSES):
@@ -82,8 +80,19 @@ def lcmask_nir_pq(lcmask_nir):
     """(p, q) with p/q == lcmask_nir exactly; raises if there is none."""
     pq = to_exact_fraction(lcmask_nir, SCALAR_MAX_DEN, SCALAR_MAX_NUM)
     if pq is None:
-        raise not_ported(SCALED_DIAGNOSTICS)
+        raise not_ported(INEXACT_THRESHOLDS)
     return pq
+
+
+def _nir_gt_lcmask(nir, lcmask_nir):
+    """nir > lcmask_nir as the reference decides it: float64-exact for
+    integer nir, plain float32 for float nir (masking.py:92-109). The dtype
+    is looked at first, so an inexact threshold raises on int16 bands
+    only."""
+    if nir.dtype.is_floating_point:
+        return nir > f32(lcmask_nir)
+    p, q = lcmask_nir_pq(lcmask_nir)
+    return nir.to(torch.int32) * q > p
 
 
 def apply_landcover_and_shadow_masks(interpreted_layer, nir, landcover_mask,
@@ -105,7 +114,6 @@ def apply_landcover_and_shadow_masks(interpreted_layer, nir, landcover_mask,
     if landcover_mask is None:
         return out
 
-    _require_int_nir(nir)
     lc = landcover_mask.to(torch.int32)
     low_off = C.DSWX_HLS_LANDCOVER_CLASSES_DICT[
         'low_intensity_developed_offset']
@@ -114,8 +122,7 @@ def apply_landcover_and_shadow_masks(interpreted_layer, nir, landcover_mask,
     evergreen = lc == C.DSWX_HLS_LANDCOVER_CLASSES_DICT['evergreen_forest']
     low_dev = (lc >= low_off) & (lc < low_off + 100)
     high_dev = (lc >= high_off) & (lc < high_off + 100)
-    p, q = lcmask_nir_pq(hls_thresholds.lcmask_nir)
-    nir_bright = nir.to(torch.int32) * q > p
+    nir_bright = _nir_gt_lcmask(nir, hls_thresholds.lcmask_nir)
     psw = ((interpreted_layer ==
             C.WATER_UNCOLLAPSED_PARTIAL_SURFACE_WATER_CONSERVATIVE_CLEAR) |
            (interpreted_layer ==
@@ -148,10 +155,23 @@ def compute_preliminary_cloud_layer(fmask, mask_adjacent_to_cloud_mode: str):
 
 def add_snow_to_cloud_layer(wtr_2_layer, cloud_layer, fmask,
                             mask_adjacent_to_cloud_mode: str):
-    """Add the snow/ice class (bit 1) to the CLOUD layer; propagate fill."""
+    """Add the snow/ice class (bit 1) to the CLOUD layer; propagate fill.
+
+    In 'cover' mode, snow is dilated (10 iterations) into clear areas
+    adjacent to cloud/shadow, then clear not-snow pixels are dilated back
+    (7 iterations) over those of the areas that WTR-2 calls water, and snow
+    they reach is dropped.
+    """
+    f = fmask.to(torch.int32)
+    snow_mask = (f & (1 << 4)) != 0
     if mask_adjacent_to_cloud_mode == 'cover':
-        raise not_ported(COVER_MODE)
-    snow_mask = (fmask.to(torch.int32) & (1 << 4)) != 0
+        clear = cloud_layer == 0
+        areas = ((f & (1 << 2)) != 0) & clear
+        snow_mask = binary_dilation_masked(snow_mask, 10, mask=areas)
+        areas = areas & is_water_class(wtr_2_layer)
+        not_masked = binary_dilation_masked((~snow_mask) & clear, 7,
+                                            mask=areas)
+        snow_mask = snow_mask & ~not_masked
     out = cloud_layer + 2 * snow_mask.to(torch.uint8)
     return torch.where(wtr_2_layer == C.UINT8_FILL_VALUE,
                        C.UINT8_FILL_VALUE, out)

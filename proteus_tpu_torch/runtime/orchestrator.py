@@ -3,16 +3,17 @@
 Port of ``proteus_tpu/runtime/orchestrator.py:70-664``:
 ``generate_dswx_layers`` keeps the keyword surface of the reference
 orchestrator (dswx_hls.py:4610-5417), its stage order and its log lines,
-and adds ``device=``. Ingest, coverage checks, reprojection planning and
-the product writer run on the host (the ``proteus_tpu`` host modules); the
-DEM and landcover warps, the terrain shadow, LAND and the per-pixel chain
-run on ``device``. On a CUDA device the per-pixel chain is the fused CUDA
-kernel, on the CPU the plain PyTorch chain; all layers come back to the
-host once, after the chain.
+and adds ``device=``. Ingest, coverage checks, shoreline rasterization,
+reprojection planning and the product writer run on the host (the
+``proteus_tpu`` host modules); the ocean mask's seaward buffer, the DEM
+and landcover warps, the terrain shadow, LAND and the per-pixel chain run
+on ``device``. On a CUDA device the per-pixel chain is the fused CUDA kernels
+(K1 or K3, and K2 in 'cover' mode), on the CPU the plain PyTorch chain;
+all layers come back to the host once, after the chain.
 
 Paths the port does not run yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: ocean masking, the 'otsu' shadow, 'cover' mode,
-offset-and-scaled inputs and 10 m / 20 m Sentinel-2 ingest.
+``ROADMAP.md`` item: the 'otsu' shadow, integer-band thresholds that are
+not exact rationals and 10 m / 20 m Sentinel-2 ingest.
 """
 
 import logging
@@ -22,10 +23,10 @@ import time
 import numpy as np
 import torch
 
-from proteus_tpu_torch.core.unported import (COVER_MODE, OCEAN_MASK,
-                                             OTSU_SHADOW, RAW_S2_RESAMPLE,
-                                             SCALED_DIAGNOSTICS, not_ported)
+from proteus_tpu_torch.core.unported import (OTSU_SHADOW, RAW_S2_RESAMPLE,
+                                             not_ported)
 from proteus_tpu_torch.device import synchronize
+from proteus_tpu_torch.geo.polygon import create_ocean_mask
 from proteus_tpu_torch.geo.warp import warp_to_grid_device
 from proteus_tpu_torch.host import (HlsThresholds, StageTimers, TiffReader,
                                     VERSION as SOFTWARE_VERSION, build_vrt,
@@ -40,7 +41,7 @@ from proteus_tpu_torch.models.dswx.landcover import \
     create_landcover_mask_arrays
 from proteus_tpu_torch.models.dswx.shadow import \
     compute_opera_shadow_layer_exact
-from proteus_tpu_torch.ops.wtr_kernel import wtr_layers
+from proteus_tpu_torch.ops.wtr_kernel import kernel_slices, wtr_layers
 
 logger = logging.getLogger('dswx_hls')
 
@@ -185,14 +186,8 @@ def generate_dswx_layers(input_list,
         raise ValueError(msg)
 
     # ---- paths not ported yet (ROADMAP.md) --------------------------------
-    if p['apply_ocean_masking']:
-        raise not_ported(OCEAN_MASK)
     if dem_file is not None and p['shadow_masking_algorithm'] == 'otsu':
         raise not_ported(OTSU_SHADOW)
-    if p['mask_adjacent_to_cloud_mode'] == 'cover':
-        raise not_ported(COVER_MODE)
-    if flag_offset_and_scale_inputs:
-        raise not_ported(SCALED_DIAGNOSTICS)
     _check_30m_inputs(input_list)
 
     # ---- parameter logging (reference dswx_hls.py:4864-4956) --------------
@@ -227,9 +222,9 @@ def generate_dswx_layers(input_list,
     logger.info(f"    CGLS Land Cover 100m forest classes:"
                 f" {p['forest_mask_landcover_classes']}")
 
-    # ocean masking is off (checked above)
-    shoreline_shapefile = None
-    shoreline_shapefile_description = None
+    if not p['apply_ocean_masking']:
+        shoreline_shapefile = None
+        shoreline_shapefile_description = None
 
     os.makedirs(scratch_dir, exist_ok=True)
 
@@ -340,6 +335,16 @@ def generate_dswx_layers(input_list,
         logger.info(f"    input HLS product cloud coverage [%]:"
                     f" {dswx_metadata_dict['INPUT_HLS_PRODUCT_CLOUD_COVERAGE']}")
 
+    # ---- ocean mask (host rasterization, device buffer) ---------------------
+    ocean_mask = None
+    if shoreline_shapefile is not None:
+        with timers.stage('ocean mask'):
+            ocean_mask = create_ocean_mask(
+                shoreline_shapefile,
+                p['ocean_masking_shoreline_distance_km'], geotransform,
+                projection, length, width, device)
+            synchronize(device)
+
     # ---- DEM warp + terrain shadow (device) ---------------------------------
     if dem_file is not None:
         logger.info(f'Preparing DEM file: {dem_file}')
@@ -408,9 +413,12 @@ def generate_dswx_layers(input_list,
         snow_in_browse=p['snow_in_browse'],
     )
 
-    logger.info('running the fused DSWx device chain'
-                f" on {device.type}"
-                f"{' (cuda kernel)' if device.type == 'cuda' else ''}")
+    # int16 bands, or float32 ones with flag_offset_and_scale_inputs
+    where = device.type
+    if device.type == 'cuda':
+        where += ' (cuda kernels ' + ' + '.join(kernel_slices(
+            blue.dtype == np.float32, p['mask_adjacent_to_cloud_mode'])) + ')'
+    logger.info(f'running the fused DSWx device chain on {where}')
     with timers.stage('device chain (compile+run)'):
         def to_dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -418,13 +426,14 @@ def generate_dswx_layers(input_list,
         fmask_d = to_dev(fmask)
         invalid_d = to_dev(invalid_array)
         out = wtr_layers(*bands, fmask_d, invalid_d, chain_config,
-                         shadow=shadow_layer, landcover=landcover_mask,
+                         ocean=ocean_mask, shadow=shadow_layer,
+                         landcover=landcover_mask,
                          compute_browse=output_browse_image is not None)
         # coverage counts: a separate pass of plain reductions
         # (orchestrator.py:477-495)
         out.update(coverage_counts(
             invalid_d, masking.compute_preliminary_cloud_layer(
-                fmask_d, p['mask_adjacent_to_cloud_mode'])))
+                fmask_d, p['mask_adjacent_to_cloud_mode']), ocean_mask))
         del bands, fmask_d, invalid_d
         synchronize(device)
     with timers.stage('device->host transfer'):

@@ -42,24 +42,24 @@ BROWSE_OPTIONS = {
 }
 
 
-def make_inputs(seed):
+def make_inputs(seed, shape=SHAPE):
     """int16 bands (10% at the int16 extremes, so the wrap-around of the
     band sums is load-bearing), fmask, invalid and ancillary planes."""
     rng = np.random.default_rng(seed)
     bands = []
     for _ in range(6):
-        b = rng.integers(-2000, 18000, SHAPE)
-        extreme = rng.random(SHAPE) < 0.1
-        b = np.where(extreme, rng.integers(-32768, 32768, SHAPE), b)
+        b = rng.integers(-2000, 18000, shape)
+        extreme = rng.random(shape) < 0.1
+        b = np.where(extreme, rng.integers(-32768, 32768, shape), b)
         bands.append(b.astype(np.int16))
     return dict(
         bands=bands,
-        fmask=rng.integers(0, 256, SHAPE).astype(np.uint8),
-        invalid=rng.random(SHAPE) < 0.05,
-        ocean=(rng.random(SHAPE) < 0.9).astype(np.uint8),
-        shadow=(rng.random(SHAPE) < 0.8).astype(np.uint8),
+        fmask=rng.integers(0, 256, shape).astype(np.uint8),
+        invalid=rng.random(shape) < 0.05,
+        ocean=(rng.random(shape) < 0.9).astype(np.uint8),
+        shadow=(rng.random(shape) < 0.8).astype(np.uint8),
         landcover=rng.choice(np.array([0, 21, 100, 121, 200, 201, 255],
-                                      np.uint8), SHAPE))
+                                      np.uint8), shape))
 
 
 def T(a):
@@ -114,12 +114,6 @@ def test_inexact_thresholds_raise(change):
         wtr_kernel.wtr_layers(*[T(x) for x in INPUTS['bands']],
                               T(INPUTS['fmask']), T(INPUTS['invalid']), cfg,
                               landcover=T(INPUTS['landcover']))
-
-
-def test_float_inputs_raise():
-    bands = [T(x.astype(np.float32) * 1e-4) for x in INPUTS['bands']]
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        tdiag.compute_diagnostic_tests(*bands, HlsThresholds())
 
 
 # ---- interpretation ------------------------------------------------------
@@ -177,16 +171,6 @@ def test_masking_stages(mode):
     assert_same(c2t, c2j)
     assert_same(tmasking.apply_cloud_masking(w2t, c2t),
                 jmasking.apply_cloud_masking(w2j, c2j))
-
-
-def test_cover_mode_raises():
-    w = T(np.zeros(SHAPE, np.uint8))
-    with pytest.raises(NotImplementedError, match='cover'):
-        tmasking.add_snow_to_cloud_layer(w, w, w, 'cover')
-    cfg = tchain.DswxChainConfig(mask_adjacent_to_cloud_mode='cover')
-    with pytest.raises(NotImplementedError, match='cover'):
-        wtr_kernel.wtr_layers(*[T(x) for x in INPUTS['bands']],
-                              T(INPUTS['fmask']), T(INPUTS['invalid']), cfg)
 
 
 # ---- browse --------------------------------------------------------------
@@ -295,23 +279,29 @@ def test_kernel_plain_matches_pallas_interpret(mode, with_ancillaries,
 
 
 def test_cpu_tensors_never_launch_the_kernel():
-    before = wtr_kernel.LAUNCHES
-    out = wtr_kernel.wtr_layers(*[T(b) for b in INPUTS['bands']],
-                                T(INPUTS['fmask']), T(INPUTS['invalid']),
-                                tchain.DswxChainConfig())
+    before = dict(wtr_kernel.LAUNCHES)
+    assert sorted(before) == ['wtr_k1', 'wtr_k2', 'wtr_k3']
+    for bands, mode in itertools.product(
+            (INPUTS['bands'], [b.astype(np.float32) * np.float32(1e-4)
+                               for b in INPUTS['bands']]),
+            ('mask', 'cover')):
+        out = wtr_kernel.wtr_layers(
+            *[T(b) for b in bands], T(INPUTS['fmask']), T(INPUTS['invalid']),
+            tchain.DswxChainConfig(mask_adjacent_to_cloud_mode=mode))
+        assert sorted(out) == sorted(LAYERS + ('BROWSE',))
     assert wtr_kernel.LAUNCHES == before
-    assert sorted(out) == sorted(LAYERS + ('BROWSE',))
 
 
 def test_kernel_params_layout():
-    """The by-value struct handed to the kernel carries ExactThresholds'
-    (p, q) pairs and the aerosol LUT."""
+    """The by-value structs handed to the kernels carry ExactThresholds'
+    (p, q) pairs and the aerosol LUT (int16 bands), or each threshold as
+    NumPy's float32 and the LUT (float32 bands)."""
     import ctypes
     from proteus_tpu.core.thresholds import ExactThresholds
     cfg = tchain.DswxChainConfig(
         thresholds=HlsThresholds(wigt=0.2, pswt_2_swir2=-3),
         aerosol_psw_aggressive_fmask_values=(7,))
-    params = wtr_kernel.kernel_params(cfg)
+    params, _ = wtr_kernel.kernel_params(cfg)
     assert ctypes.sizeof(params) == 24 * 4 + 256
     et = ExactThresholds.from_thresholds(cfg.thresholds)
     assert (params.wigt_p, params.wigt_q) == et.wigt[:2]
@@ -320,3 +310,26 @@ def test_kernel_params_layout():
     np.testing.assert_array_equal(np.array(params.aerosol_lut),
                                   cfg.aerosol_lut())
     assert params.aerosol_lut[7] == 8
+
+    # float32 bands: thresholds that are not exact rationals are fine
+    cfg = tchain.DswxChainConfig(
+        thresholds=HlsThresholds(wigt=0.12345678, pswt_1_ndvi=1 / 3,
+                                 lcmask_nir=0.1 + 0.2),
+        aerosol_psw_aggressive_fmask_values=(7,))
+    params, params_f32 = wtr_kernel.kernel_params(cfg, float_bands=True)
+    assert ctypes.sizeof(params_f32) == 12 * 4
+    t = cfg.thresholds
+    for name, field in (('wigt', 'wigt'), ('awgt', 'awgt'),
+                        ('p1_ndvi', 'pswt_1_ndvi'),
+                        ('p2_swir2', 'pswt_2_swir2'),
+                        ('lcmask', 'lcmask_nir')):
+        assert np.float32(getattr(params_f32, name)) == \
+            np.float32(getattr(t, field)), name
+    assert (params.wigt_p, params.wigt_q) == (0, 0)
+    assert params.aerosol_lut[7] == 8
+    flags = wtr_kernel.kernel_flags(
+        tchain.DswxChainConfig(mask_adjacent_to_cloud_mode='cover'),
+        True, False, True, True)
+    assert ctypes.sizeof(flags) == 12 * 4
+    assert (flags.cover, flags.mask_adjacent, flags.with_ocean,
+            flags.with_shadow) == (1, 0, 1, 0)

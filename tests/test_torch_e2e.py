@@ -108,10 +108,7 @@ def test_layers_are_not_trivial(products):
 
 
 @pytest.mark.parametrize('change,match', [
-    (dict(apply_ocean_masking=True), 'apply_ocean_masking'),
     (dict(shadow_masking_algorithm='otsu'), 'otsu'),
-    (dict(mask_adjacent_to_cloud_mode='cover'), 'cover'),
-    (dict(flag_offset_and_scale_inputs=True), 'scaled'),
 ])
 def test_unported_paths_raise(products, tmp_path, change, match):
     _, inputs, _ = products
@@ -170,6 +167,19 @@ with tempfile.TemporaryDirectory() as root:
         check_coverage=True)
     assert main([rc]) is True
     assert len(os.listdir(os.path.join(root, 'out'))) == 12
+    # scaled inputs, 'cover' mode and ocean masking
+    rc = synthetic.write_runconfig(
+        os.path.join(root, 'rc2.yaml'), os.path.join(root, 'input'),
+        os.path.join(root, 'out2'), os.path.join(root, 'scratch'),
+        shoreline_shapefile=synthetic.make_shoreline(root, size=64),
+        apply_ocean_masking=True,
+        extra_processing={'mask_adjacent_to_cloud_mode': 'cover',
+                          'ocean_masking_shoreline_distance_km': 0.3})
+    assert main([rc, '--offset-and-scale-inputs']) is True
+    from proteus_tpu_torch.host import TiffReader
+    out = os.path.join(root, 'out2', 'dswx_hls_test_v0.1_B01_WTR.tif')
+    with TiffReader(out) as r:
+        assert (r.read() == 254).any()
 sys.stdout = sys.__stdout__
 print('jax loaded:', 'jax' in sys.modules)
 '''
