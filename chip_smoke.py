@@ -8,13 +8,21 @@ Usage (from the root of a checkout, on a machine with a CUDA GPU):
 Phases, each printed on its own line; any failure exits nonzero:
 
 1. device: the card's name and power limit, torch/CUDA/nvcc versions;
-2. build: the CUDA kernels, from the sources in the checkout;
-3. kernels vs plain: the CUDA kernels K1, K2 and K3 against the plain
-   PyTorch chain on the same 3660 x 3660 tensors on the card, bit for bit,
-   in every combination of int16 / float32 bands (float32 operands pushed
-   onto the ratio tests' rounding boundaries), 'mask' / 'ignore' / 'cover'
-   mode (a random and a structured fmask), ancillary planes and browse;
-   then each kernel and its plain version timed with CUDA events;
+2. build: the CUDA kernels and the native TIFF codec, from the sources in
+   the checkout (the codec says which DEFLATE library it linked);
+3. kernels vs plain: the CUDA kernels against their plain PyTorch versions
+   on the same 3660 x 3660 tensors on the card, bit for bit. K1, K2 and K3
+   through ``wtr_layers`` in every combination of int16 / float32 bands
+   (float32 operands pushed onto the ratio tests' rounding boundaries),
+   'mask' / 'ignore' / 'cover' mode (a random and a structured fmask),
+   ancillary planes and browse. K4, K5 and K6 through
+   ``wtr_layers_batched`` in every combination of int16 / float32 / raw
+   int16 with device scale, the three modes, full / minimal outputs and
+   B = 1 / 3, with the ancillary planes and browse varied, per-tile scales
+   and offsets that differ between the tiles of a batch, and raw int16
+   pairs whose scaled ratios land within 2 ULPs of each ratio threshold.
+   Then each kernel and its plain version timed with CUDA events, K4+K5+K6
+   at B = 1 and B = 4;
 4. main path: a full-size synthetic HLS tile (3660^2 bands, DEM with its
    50 px margin, 3x WorldCover grid) through
    ``python -m proteus_tpu_torch.cli.dswx_hls``'s ``main`` on ``cuda``
@@ -23,10 +31,26 @@ Phases, each printed on its own line; any failure exits nonzero:
    ``--offset-and-scale-inputs``. Each run's launch counts start at 0 and
    must show its kernels; its layers are held against the numpy oracle,
    (a)'s ocean against the host's distance-transform ocean mask, and (c)'s
-   DEM and SHAD against the host float64 warp and shadow.
+   DEM and SHAD against the host float64 warp and shadow;
+5. campaign: ``python -m proteus_tpu_torch.cli.dswx_campaign``'s ``main``
+   on ``cuda`` over three jobs (tile A, a second tile B, a copy of A) at
+   full size with DEM, CGLS, WorldCover, browse and
+   ``--tiles-per-device 2`` (one batch of two tiles, one padded), three
+   times: (d) int16 'mask'; (e) ``--scaled`` (device scale on); (f)
+   'cover' with a shoreline on run (a)'s Fmask. Each run's launch counts
+   start at 0 and must show its slices; tile A's files are held against
+   phase 4's run of the same mode, tile B's science layers against the
+   numpy oracle. Then the campaign step alone at 1, 2, 4 and 8 tiles a
+   device;
+6. multi-card (only when two or more cards are visible; skipped on one):
+   the campaign CLI over every card against the same campaign on card 0
+   alone, six jobs of 1024^2 in the modes of phase 5, file by file, with
+   each card's launches and the oracle checked.
+
+``python3 chip_smoke.py --multi-gpu`` runs phases 1, 2 and 6 alone.
 
 The last lines are the card's name and power limit, a JSON line with each
-kernel's launches, error and times, and
+kernel's launches, error, times and bound, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository, it exits nonzero and prints no result.
 """
@@ -41,7 +65,12 @@ import tempfile
 import time
 
 SIZE = 3660
+DEVICE = 'cuda'
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the card's memory rate and its float32 rate outside the tensor cores
+# (NVIDIA's H100 SXM data sheet), for each kernel's least time
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 def say(msg):
@@ -78,7 +107,17 @@ def phase_device(torch):
 
 def phase_build():
     say('== phase 2: build')
+    from proteus_tpu_torch import native
+    from proteus_tpu_torch.native import build as native_build
     from proteus_tpu_torch.ops.build import build
+    t0 = time.perf_counter()
+    native_build.build(verbose=False)
+    say(f'native codec: {native_build.lib_path()} built from '
+        f'proteus_tpu_torch/native/tiffturbo.cpp in '
+        f'{time.perf_counter() - t0:.2f} s, linked '
+        f'{native_build.linked()}; codec in use: {native.codec()}')
+    if not native.codec().startswith('native'):
+        raise AssertionError('the native codec did not load')
     t0 = time.perf_counter()
     built = build('wtr_kernel')
     say(f'wtr_kernel: {built.path}; nvcc {built.seconds:.2f} s, '
@@ -153,6 +192,64 @@ def scaled_bands(rng, shape, thresholds):
     return bands
 
 
+def _ordered(x):
+    """float32 values as integers in the order of the floats (adjacent
+    floats differ by 1)."""
+    import numpy as np
+    i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def boundary_pairs(threshold, scales, offsets, a, c):
+    """Raw int16 pairs (A, C) of bands a and c (indices into blue..swir2)
+    whose scaled ratio (a - c) / (a + c), with a = scale * (float32(A) -
+    offset) in float32 as the device-scale kernel computes it, lands
+    within 2 float32 ULPs of the threshold (on either side). Returns an
+    (n, 2) int16 array."""
+    import numpy as np
+    t32 = np.float32(threshold)
+    cc = np.arange(1, 32768, dtype=np.int64)
+    cs = scales[c] * (cc.astype(np.float32) - offsets[c])
+    ratio = (1 + np.float64(t32)) / (1 - np.float64(t32))
+    found = []
+    for step in (-1, 0, 1):
+        aa = np.rint((cs.astype(np.float64) * ratio) / np.float64(scales[a])
+                     + np.float64(offsets[a])).astype(np.int64) + step
+        ok = (aa >= 1) & (aa <= 32767)
+        av = scales[a] * (aa[ok].astype(np.float32) - offsets[a])
+        q = (av - cs[ok]) / (av + cs[ok])
+        near = np.abs(_ordered(q) - _ordered(t32)) <= 2
+        found.append(np.stack([aa[ok][near], cc[ok][near]], axis=1))
+    pairs = np.concatenate(found).astype(np.int16)
+    if len(pairs) < 10:
+        raise AssertionError(f'only {len(pairs)} boundary pairs for '
+                             f'{threshold}')
+    return pairs
+
+
+def raw_scaled_tile(rng, shape, thresholds, scales, offsets):
+    """Raw int16 bands for the device-scale kernel (K4) with this tile's
+    scales and offsets: 1% of pixels 0 in every band, and in a quarter of
+    the pixels the two bands of one ratio test replaced by a raw pair whose
+    scaled ratio lies within 2 ULPs of its threshold (green and swir1 for
+    wigt and the two pswt_*_mndwi, nir and red for pswt_1_ndvi)."""
+    import numpy as np
+    raw = [rng.integers(1, 18000, shape).astype(np.int16) for _ in range(6)]
+    zero = rng.random(shape) < 0.01
+    for r in raw:
+        r[zero] = 0
+    which = rng.integers(0, 16, shape)
+    for k, (name, _) in enumerate(RATIO_TESTS):
+        a, c = (3, 2) if name == 'pswt_1_ndvi' else (1, 4)
+        pairs = boundary_pairs(getattr(thresholds, name), scales, offsets,
+                               a, c)
+        sel = (which == k) & ~zero
+        pick = pairs[rng.integers(0, len(pairs), int(sel.sum()))]
+        raw[a][sel] = pick[:, 0]
+        raw[c][sel] = pick[:, 1]
+    return raw
+
+
 def structured_cover_fmask(shape):
     """An fmask for 'cover' mode (after tests/test_pallas_kernel.py:99-123):
     adjacent-to-cloud nearly everywhere, snow stripes and blobs that cross
@@ -212,7 +309,7 @@ def _time_ms(torch, fn, inputs, repeats, cycles=4):
 def _copy_bandwidth(torch, nbytes=2 * 2**30):
     """Device-to-device copy rate (bytes read + written per second) of a
     2 GiB buffer: the card's sustainable HBM bandwidth as a yardstick."""
-    src = torch.empty(nbytes, dtype=torch.uint8, device='cuda')
+    src = torch.empty(nbytes, dtype=torch.uint8, device=DEVICE)
     dst = torch.empty_like(src)
     ms = _time_ms(torch, lambda: dst.copy_(src), [()], 5, cycles=10)
     return 2 * nbytes / (ms * 1e-3)
@@ -243,7 +340,7 @@ def phase_kernel_vs_plain(torch):
 
     say('== phase 3: kernels vs plain chain on the card, '
         f'{SIZE}x{SIZE}')
-    device = torch.device('cuda')
+    device = torch.device(DEVICE)
     rng = np.random.default_rng(20261016)
     thresholds = DswxChainConfig().thresholds
 
@@ -333,17 +430,236 @@ def phase_kernel_vs_plain(torch):
             f'{tile_bytes / (ms * 1e-3) / 1e9:.1f} GB/s, '
             f'{tile_bytes / (ms * 1e-3) / copy_bw:.1%} of the device copy')
         stats[name] = {'max_abs_err': errors[name], 'ms': ms,
-                       'plain_ms': pms}
+                       'plain_ms': pms,
+                       **_bound(name, FUNCTION_BYTES_PER_PX[name] * SIZE
+                                * SIZE)}
 
     # K2's second pass alone, on the state bytes of its first
-    out, state, flags = wtr_kernel.pixel_pass(*inputs['int16'][0],
-                                              configs['cover'], **main_kw)
+    out, state, flags, _ = wtr_kernel.pixel_pass(
+        *[t.unsqueeze(0) for t in inputs['int16'][0]], configs['cover'],
+        **{k: v.unsqueeze(0) for k, v in main_kw.items()}, batched=False)
     pass_b = [_time_ms(torch, lambda: wtr_kernel.launch_k2(state, out, flags),
                        [()], 10, cycles=16) for _ in range(2)]
     say(f'wtr_k2 pass B alone (state + WTR-2 in, 5 layers out): '
         f'{statistics.median(pass_b):.4f} ms/tile (runs {pass_b}); '
         f'device copy {copy_bw / 1e9:.1f} GB/s')
-    return stats
+    return stats, inputs, planes, fmasks, copy_bw
+
+
+# bytes a pixel each slice's function must move at the main path's flags
+# (shadow, landcover, browse; minimal outputs for K4-K6): its inputs read
+# once and its outputs written once, as in csrc/wtr_kernel.cu. 'cover'
+# (K2) moves no more than K1 does; its state bytes are the kernel's own.
+FUNCTION_BYTES_PER_PX = {'wtr_k1': 25, 'wtr_k2': 25, 'wtr_k3': 37,
+                         'wtr_k4': 18, 'wtr_k5': 18, 'wtr_k6': 18}
+# operations a pixel each slice's function needs at the main path's flags,
+# for the operations side of the bound: counted line by line in
+# csrc/wtr_kernel.cu, one for each add, multiply, divide, convert,
+# compare, logical operation, shift and select (loads and stores are the
+# bytes side). The function's count, not the kernel's: K2's pass B
+# recomputes its 17 px halo, 66^2/32^2 = 4.25 times the dilation work.
+_OPS = {
+    # diag_tests<int16>: 6 wrapped sums (an add and wrap16's add, and,
+    # subtract: 24), AWEsh (3 multiplies, 3 adds: 6), 4 ratio tests (2
+    # multiplies, 6 compares, 5 logical: 52), t2 (1), t3 (3), t4's and
+    # t5's 6 band tests (a multiply and a compare each) with their 7 ANDs
+    # (19), the two NIR tests (3)
+    'tests_int16': 24 + 6 + 52 + 1 + 3 + 19 + 3,
+    # diag_tests<float>: MNDWI and NDVI (a subtract, an add, a divide
+    # each: 6), MBSRV and MBSRN (2), AWEsh (3 multiplies, 3 adds: 6), the
+    # 12 compares of t1 ... t5 with their 7 ANDs (19), the two NIR
+    # compares (2)
+    'tests_float': 6 + 2 + 6 + 19 + 2,
+    # K4: scale_band on 6 bands (convert, subtract, multiply: 18), the
+    # tile index i / (H*W) and its row (2)
+    'cast': 18 + 2,
+    # wtr_pixel_kernel from the invalid test to WTR-2 at shadow +
+    # landcover: invalid (1), WTR-1 (4 adds, 13 compares and selects, the
+    # fill select: 18), preliminary CLOUD (8), the aerosol remap (19), the
+    # shadow test (8), the landcover demotions (16)
+    'body': 1 + 18 + 8 + 19 + 8 + 16,
+    'snow_bit': 3,                     # fmask bit 4 -> CLOUD + 2
+    # the DIAG pseudo-binary (4 multiplies, 4 adds, a select: 9) and
+    # finish_pixel with browse (CLOUD 2, WTR 12, BWTR 4, CONF 10, BROWSE
+    # 18)
+    'full_outputs': 9 + 46,
+    # K5: diag6 (4 shifts, 4 ORs, a select: 9), the two class indices
+    # (8) and their shifts and OR (3), CLOUD's fill (2), PACKED_A (3) and
+    # PACKED_B (3)
+    'packed': 9 + 8 + 3 + 2 + 3 + 3,
+    'cover_state': 12,                 # the 'cover' state byte
+    # K2's pass B: 17 masked cross steps of 7 (three ORs of the four
+    # neighbours, the mask's AND and compare, the pixel's test and
+    # select), the two seed sets (6), the final snow bit and CLOUD (5)
+    'dilations': 17 * 7 + 6 + 5,
+}
+OPS_PER_PX = {
+    'wtr_k1': _OPS['tests_int16'] + _OPS['body'] + _OPS['snow_bit']
+    + _OPS['full_outputs'],
+    'wtr_k2': _OPS['tests_int16'] + _OPS['body'] + _OPS['cover_state']
+    + _OPS['dilations'] + _OPS['full_outputs'],
+    'wtr_k3': _OPS['tests_float'] + _OPS['body'] + _OPS['snow_bit']
+    + _OPS['full_outputs'],
+    # K4-K6 at the flags phase 3b times them with: raw int16 with device
+    # scale (K4), int16 (K5, K6), minimal outputs
+    'wtr_k4': _OPS['tests_float'] + _OPS['cast'] + _OPS['body']
+    + _OPS['snow_bit'] + _OPS['packed'],
+    'wtr_k5': _OPS['tests_int16'] + _OPS['body'] + _OPS['snow_bit']
+    + _OPS['packed'],
+    'wtr_k6': _OPS['tests_int16'] + _OPS['body'] + _OPS['snow_bit']
+    + _OPS['packed'],
+}
+
+
+def _bound(name, tile_bytes):
+    """The least time for one tile: the larger of the bytes the function
+    must move over the card's memory rate and its operations over the
+    card's float32 rate."""
+    by_bytes = tile_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = OPS_PER_PX[name] * SIZE * SIZE / PEAK_OPS_PER_S * 1e3
+    return {'bound_ms': max(by_bytes, by_ops),
+            'bound_by': 'bytes' if by_bytes >= by_ops else 'operations',
+            'library_ms': None}
+
+
+def phase_batched_vs_plain(torch, inputs, planes, fmasks, copy_bw):
+    """K4, K5 and K6 through wtr_layers_batched against
+    wtr_layers_batched_plain on [B, H, W] stacks on the card, bit for bit;
+    then K4+K5+K6 timed at B = 1 and B = 4."""
+    import itertools
+    import numpy as np
+    from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
+    from proteus_tpu_torch.ops import wtr_kernel
+
+    say(f'== phase 3b: batched kernels (K4, K5, K6) vs plain, B x {SIZE}'
+        f'x{SIZE}')
+    device = torch.device(DEVICE)
+    rng = np.random.default_rng(20261017)
+    thresholds = DswxChainConfig().thresholds
+    n_tiles = len(inputs['int16'])
+    # per-tile scales and offsets, different in every tile and band
+    scales = (np.float32(1e-4) * rng.uniform(0.5, 2.0, (n_tiles, 6))) \
+        .astype(np.float32)
+    offsets = rng.choice(np.asarray([0.0, -0.1, 0.25], np.float32),
+                         (n_tiles, 6))
+    raw = [[torch.from_numpy(b).to(device) for b in raw_scaled_tile(
+        rng, (SIZE, SIZE), thresholds, scales[k], offsets[k])]
+        for k in range(n_tiles)]
+    scales_d = torch.from_numpy(scales).to(device)
+    offsets_d = torch.from_numpy(offsets).to(device)
+
+    def stack(kind, b, mode):
+        """The first b tiles of a kind as [b, H, W] inputs; 'cover' puts
+        the structured fmask in tile 1."""
+        src = raw if kind == 'device_scale' else \
+            [t[:6] for t in inputs[kind]]
+        bands = [torch.stack([src[k][j] for k in range(b)])
+                 for j in range(6)]
+        fm = [inputs['int16'][k][6] for k in range(b)]
+        if mode == 'cover' and b > 1:
+            fm[1] = fmasks['structured']
+        inv = torch.stack([inputs['int16'][k][7] for k in range(b)])
+        kw = {}
+        if kind == 'device_scale':
+            kw = dict(scales=scales_d[:b].contiguous(),
+                      offsets=offsets_d[:b].contiguous())
+        return bands, torch.stack(fm), inv, kw
+
+    def plane(name, b):
+        return torch.stack([torch.roll(planes[name], 17 * k, 0)
+                            for k in range(b)])
+
+    errors = dict.fromkeys(wtr_kernel.LAUNCHES, 0)
+    n_runs = 0
+    variants = itertools.cycle(itertools.product((False, True), repeat=4))
+    for kind, mode, minimal, b in itertools.product(
+            ('int16', 'float32', 'device_scale'), wtr_kernel.MODES,
+            (False, True), (1, 3)):
+        with_ocean, with_shadow, with_lc, browse = next(variants)
+        cfg = DswxChainConfig(
+            mask_adjacent_to_cloud_mode=mode,
+            apply_aerosol_class_remapping=not (with_ocean
+                                               and mode == 'ignore'),
+            not_water_in_browse='nodata' if with_shadow else 'white',
+            cloud_in_browse='nodata' if with_lc else 'gray')
+        bands, fm, inv, kw = stack(kind, b, mode)
+        kw.update(ocean=plane('ocean', b) if with_ocean else None,
+                  shadow=plane('shadow', b) if with_shadow else None,
+                  landcover=plane('landcover', b) if with_lc else None,
+                  compute_browse=browse, minimal=minimal)
+        got = wtr_kernel.wtr_layers_batched(*bands, fm, inv, cfg, **kw)
+        want = wtr_kernel.wtr_layers_batched_plain(*bands, fm, inv, cfg,
+                                                   **kw)
+        torch.cuda.synchronize()
+        err = _compare(torch, got, want, (
+            f'bands={kind} mode={mode} minimal={minimal} B={b} ocean='
+            f'{with_ocean} shadow={with_shadow} landcover={with_lc} '
+            f'browse={browse}'))
+        for name in wtr_kernel.kernel_slices(
+                kind == 'float32', mode, kind == 'device_scale', minimal,
+                batched=True):
+            errors[name] = max(errors[name], err)
+        n_runs += 1
+        del got, want, bands, fm, inv, kw
+    say(f'batched kernels == plain, bit for bit, in {n_runs} combinations '
+        f'(int16/float32/device-scale bands x mask/ignore/cover x full/'
+        f'minimal x B=1/3; ancillaries and browse varied; per-tile scales '
+        f'and offsets; raw pairs within 2 ULPs of each ratio threshold); '
+        f'max |err| {errors}')
+
+    # K4+K5+K6 at the campaign's default flags (shadow + landcover,
+    # minimal outputs), per tile, at B = 1 and B = 4
+    cfg = DswxChainConfig()
+    tile_bytes = 18 * SIZE * SIZE
+    stats = {}
+    for kind, b in itertools.product(('int16', 'device_scale'), (1, 4)):
+        src = raw if kind == 'device_scale' else \
+            [t[:6] for t in inputs[kind]]
+        sets = []
+        for k in range(0, n_tiles, b):
+            idx = list(range(k, k + b))
+            args = [torch.stack([src[i][j] for i in idx]) for j in range(6)]
+            args += [torch.stack([inputs['int16'][i][6] for i in idx]),
+                     torch.stack([inputs['int16'][i][7] for i in idx])]
+            kw = dict(shadow=plane('shadow', b), landcover=plane(
+                'landcover', b), minimal=True)
+            if kind == 'device_scale':
+                kw.update(scales=scales_d[idx].contiguous(),
+                          offsets=offsets_d[idx].contiguous())
+            sets.append((args, kw))
+
+        def kernel(args, kw):
+            return wtr_kernel.wtr_layers_batched(*args, cfg, **kw)
+
+        def plain(args, kw):
+            return wtr_kernel.wtr_layers_batched_plain(*args, cfg, **kw)
+        plain_ms = [_time_ms(torch, plain, sets, 3) / b]
+        kernel_ms = [_time_ms(torch, kernel, sets, 10) / b,
+                     _time_ms(torch, kernel, sets, 10) / b]
+        plain_ms.append(_time_ms(torch, plain, sets, 3) / b)
+        ms, pms = statistics.median(kernel_ms), statistics.median(plain_ms)
+        slices = wtr_kernel.kernel_slices(False, 'mask',
+                                          kind == 'device_scale', True,
+                                          batched=True)
+        bound_copy = tile_bytes / copy_bw * 1e3
+        say(f'{"+".join(slices)} ({kind}, B={b}; shadow + landcover, '
+            f'minimal): kernel {ms:.4f} ms/tile (runs {kernel_ms}), plain '
+            f'{pms:.4f} ms/tile (runs {plain_ms}); 18 B/px = '
+            f'{tile_bytes / 1e6:.1f} MB/tile = '
+            f'{tile_bytes / (ms * 1e-3) / 1e9:.1f} GB/s, '
+            f'{tile_bytes / (ms * 1e-3) / copy_bw:.1%} of the device copy '
+            f'({copy_bw / 1e9:.1f} GB/s); the 18 B/px bound at that copy '
+            f'rate is {bound_copy:.4f} ms, {bound_copy / ms:.1%} of the '
+            f'kernel time')
+        stats[(kind, b)] = (ms, pms)
+        del sets
+    out = {}
+    for name, key in (('wtr_k4', ('device_scale', 4)),
+                      ('wtr_k5', ('int16', 1)), ('wtr_k6', ('int16', 4))):
+        ms, pms = stats[key]
+        out[name] = {'max_abs_err': errors[name], 'ms': ms, 'plain_ms': pms,
+                     **_bound(name, tile_bytes)}
+    return out
 
 
 class _Collect(logging.Handler):
@@ -396,9 +712,9 @@ def _run_cli(torch, label, argv, expect):
     return launches
 
 
-def _read_layers(output_dir):
-    from proteus_tpu_torch.host import TiffReader
-    prefix = os.path.join(output_dir, 'dswx_hls_test_v0.1_')
+def _read_layers(output_dir, product='dswx_hls_test'):
+    from proteus_tpu_torch.io.tiff import TiffReader
+    prefix = os.path.join(output_dir, f'{product}_v0.1_')
     layers = ['WTR', 'BWTR', 'CONF', 'DIAG', 'WTR-1', 'WTR-2', 'LAND',
               'SHAD', 'CLOUD', 'DEM']
     got = {}
@@ -408,6 +724,8 @@ def _read_layers(output_dir):
     for suffix in ('BROWSE.png', 'BROWSE.tif'):
         if not os.path.isfile(prefix + suffix):
             raise AssertionError(f'missing {prefix + suffix}')
+    with TiffReader(prefix + 'BROWSE.tif') as r:
+        got['BROWSE'] = r.read()
     return got
 
 
@@ -416,7 +734,7 @@ def _hold_against_oracle(oracle, label, got, bands, fmask, invalid, mode,
     """The per-pixel layers vs the numpy oracle, fed the run's own SHAD and
     LAND (as tests/test_workflow.py does)."""
     import numpy as np
-    from proteus_tpu_torch.host import HlsThresholds
+    from proteus_tpu_torch.core.thresholds import HlsThresholds
     t = HlsThresholds()
     want = oracle.full_chain(
         *[bands[k] for k in ('blue', 'green', 'red', 'nir', 'swir1',
@@ -444,10 +762,13 @@ def phase_main_path(torch, workdir):
     import numpy as np
     sys.path.insert(0, os.path.join(REPO, 'tests'))
     import oracle
-    import synthetic
-    from proteus_tpu_torch.host import (CRS, TiffReader, create_ocean_mask,
-                                        warp_to_grid, write_cog)
+    from proteus_tpu_torch.geo.crs import CRS
+    from proteus_tpu_torch.geo.polygon import create_ocean_mask
+    from proteus_tpu_torch.geo.warp import warp_to_grid
+    from proteus_tpu_torch.io.cog import write_cog
+    from proteus_tpu_torch.io.tiff import TiffReader
     from proteus_tpu_torch.models.dswx.shadow import _host_shadow_exact
+    from proteus_tpu_torch.testing import synthetic
 
     say('== phase 4: three product runs through the CLI, full-size '
         'synthetic tile')
@@ -493,7 +814,7 @@ def phase_main_path(torch, workdir):
 
     def count(run):
         for name, n in run.items():
-            launches[name] += n
+            launches[name] = launches.get(name, 0) + n
 
     # (c) the default run: int16, 'mask' (K1); DEM and SHAD vs the host
     count(_run_cli(torch, 'c (default: int16, mask)', [rc['c']],
@@ -549,7 +870,8 @@ def phase_main_path(torch, workdir):
         f"ocean mask, {share:.2%} of the tile; 'cover' changed {changed} "
         f"CLOUD px against 'ignore'")
 
-    # (b) --offset-and-scale-inputs (K3), the cast of io/hls.py:185
+    # (b) --offset-and-scale-inputs (K3), the cast of
+    # proteus_tpu_torch/io/hls.py:176
     count(_run_cli(torch, 'b (float32 scaled, mask)',
                    [rc['b'], '--offset-and-scale-inputs'], ('wtr_k3',)))
     got = _read_layers(os.path.join(workdir, 'output_b'))
@@ -559,10 +881,304 @@ def phase_main_path(torch, workdir):
     _hold_against_oracle(oracle, 'b', got, scaled, raw['Fmask'], invalid,
                          'mask')
     say('run b: all layers == oracle on the float32 bands (bit for bit)')
+    tile = dict(files=files, raw=raw, ints=ints, invalid=invalid,
+                input_dir=input_dir, input_a=input_a, fmask_a=fmask_a,
+                ocean=ocean, dem_file=dem_file, lc_file=lc_file,
+                wc_file=wc_file, shoreline=shoreline)
+    return launches, tile
+
+
+def _run_campaign(torch, label, argv, expect, stats_path, n_tiles=3):
+    """One campaign through the campaign CLI's ``main`` with the launch
+    counts set to 0 just before it and a cold ancillary cache; checks that
+    each slice in ``expect`` launched and returns the counts."""
+    from proteus_tpu_torch.cli.dswx_campaign import main as campaign_main
+    from proteus_tpu_torch.io.cog import PAYLOAD_CACHE
+    from proteus_tpu_torch.ops import wtr_kernel
+    from proteus_tpu_torch.parallel import campaign
+
+    campaign.ANCILLARY_CACHE.clear()
+    PAYLOAD_CACHE.clear()
+    campaign.STAGE_TIMES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    for name in wtr_kernel.LAUNCHES:
+        wtr_kernel.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    try:
+        campaign_main(argv + ['--stats-json', stats_path])
+    except SystemExit as exc:
+        raise AssertionError(f'campaign {label} exited with {exc.code}')
+    finally:
+        # the CLI routes stdout/stderr into its logger
+        sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
+    wall = time.perf_counter() - t0
+    launches = dict(wtr_kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with open(stats_path) as fh:
+        stats = json.load(fh)
+    if stats['tiles_done'] != n_tiles or stats['tiles_failed']:
+        raise AssertionError(f'campaign {label}: {stats}')
+    for name in expect:
+        if launches[name] < 1:
+            raise AssertionError(f'campaign {label} never launched {name}')
+    say(f'campaign {label}: {wall:.2f} s wall for {n_tiles} tiles, '
+        f'{wall / n_tiles:.2f} s/tile, launches {launches}, peak device memory '
+        f'{peak / 2**30:.3f} GiB; stage core-seconds (summed over pool '
+        f'threads):')
+    for name, entry in stats['stage_seconds'].items():
+        say(f'    {name:<28} {entry["seconds"]:8.2f} s  {entry["calls"]:3d}'
+            f' calls')
     return launches
 
 
-def main():
+def _same_products(label, got, want, layers):
+    import numpy as np
+    for layer in layers:
+        if not np.array_equal(got[layer], want[layer], equal_nan=True):
+            raise AssertionError(
+                f'campaign {label}: {layer} differs in '
+                f'{int((got[layer] != want[layer]).sum())} px')
+
+
+def phase_campaign(torch, workdir, tile):
+    import shutil
+    import numpy as np
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    import oracle
+    from proteus_tpu_torch.testing import synthetic
+
+    say('== phase 5: three campaigns through the campaign CLI, 3 full-size '
+        'tiles each (A, B, a copy of A), 2 tiles a device')
+    t0 = time.perf_counter()
+    tile_b = os.path.join(workdir, 'tile_b')
+    _, raw_b = synthetic.make_hls_v2_dataset(tile_b, size=SIZE, seed=12)
+    copies = {}
+    for name, src in (('tile_a2', tile['input_dir']),
+                      ('tile_fa2', tile['input_a'])):
+        copies[name] = os.path.join(workdir, name)
+        shutil.copytree(src, copies[name])
+    invalid_b = np.zeros((SIZE, SIZE), bool)
+    ints_b = {}
+    for key, name in [('blue', 'B02'), ('green', 'B03'), ('red', 'B04'),
+                      ('nir', 'B8A'), ('swir1', 'B11'), ('swir2', 'B12')]:
+        invalid_b |= raw_b[name] == -9999
+        ints_b[key] = np.clip(raw_b[name], 1, None)
+    say(f'tile B and the copies written in {time.perf_counter() - t0:.1f} s')
+
+    layers = ['WTR', 'BWTR', 'CONF', 'DIAG', 'WTR-1', 'WTR-2', 'LAND',
+              'SHAD', 'CLOUD', 'DEM', 'BROWSE']
+    anc = ['--dem', tile['dem_file'], '-c', tile['lc_file'], '-w',
+           tile['wc_file'], '--browse', '--tiles-per-device', '2',
+           '--product-version', '0.1']
+    md = synthetic.HLS_METADATA
+    scale, offset = float(md['scale_factor']), float(md['add_offset'])
+    launches = {}
+    for label, dirs, extra, expect, single, mode in (
+            ('d (int16, mask)',
+             [tile['input_dir'], tile_b, copies['tile_a2']], [],
+             ('wtr_k1', 'wtr_k5', 'wtr_k6'), 'output_c', 'mask'),
+            ('e (scaled, device scale)',
+             [tile['input_dir'], tile_b, copies['tile_a2']], ['--scaled'],
+             ('wtr_k3', 'wtr_k4', 'wtr_k5', 'wtr_k6'), 'output_b', 'mask'),
+            ('f (int16, cover, shoreline)',
+             [tile['input_a'], tile_b, copies['tile_fa2']],
+             ['--mask-adjacent-to-cloud-mode', 'cover', '-s',
+              tile['shoreline']],
+             ('wtr_k1', 'wtr_k2', 'wtr_k5', 'wtr_k6'), 'output_a',
+             'cover')):
+        key = label[0]
+        out = os.path.join(workdir, f'campaign_{key}')
+        run = _run_campaign(torch, label, dirs + ['-o', out] + anc + extra,
+                            expect, os.path.join(workdir, f'stats_{key}.json'))
+        for name, n in run.items():
+            launches[name] = launches.get(name, 0) + n
+        names = [os.path.basename(d) for d in dirs]
+        got_a = _read_layers(os.path.join(out, names[0]), names[0])
+        _same_products(label, got_a, _read_layers(os.path.join(
+            workdir, single)), layers)
+        _same_products(label, _read_layers(os.path.join(out, names[2]),
+                                           names[2]), got_a, layers)
+        got_b = _read_layers(os.path.join(out, names[1]), names[1])
+        bands_b = ints_b
+        if key == 'e':
+            bands_b = {k: scale * (np.asarray(v, dtype=np.float32) - offset)
+                       for k, v in ints_b.items()}
+        _hold_against_oracle(oracle, f'{key} tile B', got_b, bands_b,
+                             raw_b['Fmask'], invalid_b, mode,
+                             ocean=tile['ocean'] if key == 'f' else None)
+        say(f'campaign {key}: tile A == single-tile run '
+            f'{single[-1]} on all 11 layers (WTR ... DEM, BROWSE), its copy '
+            f'== tile A; tile B == oracle on WTR, BWTR, CONF, DIAG, WTR-1, '
+            f'WTR-2, CLOUD (bit for bit)')
+    return launches
+
+
+def phase_step_sweep(torch, tile, workdir):
+    """The campaign step alone (K1+K5+K6 and the coverage counts, the
+    totals read back) on device-resident copies of tile A at 1, 2, 4 and 8
+    tiles a device: the per-tile device time that sets the default
+    tiles_per_device on this card."""
+    import numpy as np
+    from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
+    from proteus_tpu_torch.parallel.campaign import make_campaign_step
+
+    say('== phase 5b: the campaign step alone at 1, 2, 4 and 8 tiles a '
+        'device')
+    device = torch.device(DEVICE)
+    got = _read_layers(os.path.join(workdir, 'output_c'))
+    planes = [tile['ints'][k] for k in ('blue', 'green', 'red', 'nir',
+                                        'swir1', 'swir2')]
+    planes += [tile['raw']['Fmask'], tile['invalid'], got['SHAD'],
+               got['LAND']]
+    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(device)
+              for p in planes]
+    step = make_campaign_step(DswxChainConfig(), [device], with_shadow=True,
+                              with_landcover=True)
+    for tpd in (1, 2, 4, 8):
+        args = [[torch.stack([p] * tpd)] for p in planes]
+        step(*args)
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step(*args)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / (10 * tpd) * 1e3)
+        say(f'campaign step, {tpd} tile(s) a device: '
+            f'{statistics.median(runs):.4f} ms/tile (runs {runs}; host clock'
+            f' around 10 steps, each reading its totals back)')
+        del args
+
+
+MULTI_SIZE = 1024  # tile side of the multi-card check
+
+
+def phase_multi_gpu(torch, workdir):
+    """The campaign CLI over every visible card against the same campaign
+    on card 0 alone, file by file: six jobs (three tiles, each twice) at
+    MULTI_SIZE with DEM, CGLS, WorldCover and browse, one tile a card, in
+    phase 5's three modes. Every card must have run its share (its launch
+    counts, its peak memory), and the multi-card run's tiles are held
+    against the oracle."""
+    import shutil
+    import numpy as np
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    import oracle
+    from proteus_tpu_torch.geo.crs import CRS
+    from proteus_tpu_torch.geo.polygon import create_ocean_mask
+    from proteus_tpu_torch.testing import synthetic
+
+    n_cards = torch.cuda.device_count()
+    size = MULTI_SIZE
+    say(f'== phase 6: the campaign over {n_cards} cards against card 0 '
+        f'alone, 6 jobs of {size}^2, one tile a card')
+    t0 = time.perf_counter()
+    dirs, bands, fmasks, invalids = [], [], [], []
+    for t in range(3):
+        d = os.path.join(workdir, f'multi_{t}')
+        _, raw = synthetic.make_hls_v2_dataset(d, size=size, seed=60 + t)
+        dirs.append(d)
+        inv = np.zeros((size, size), bool)
+        ints = {}
+        for key, name in [('blue', 'B02'), ('green', 'B03'),
+                          ('red', 'B04'), ('nir', 'B8A'), ('swir1', 'B11'),
+                          ('swir2', 'B12')]:
+            inv |= raw[name] == -9999
+            ints[key] = np.clip(raw[name], 1, None)
+        bands.append(ints)
+        fmasks.append(raw['Fmask'])
+        invalids.append(inv)
+    for t in range(3):
+        dirs.append(os.path.join(workdir, f'multi_{t}_copy'))
+        shutil.copytree(dirs[t], dirs[-1])
+    anc_dir = os.path.join(workdir, 'multi_anc')
+    os.makedirs(anc_dir)
+    anc = ['--dem', synthetic.make_dem(anc_dir, size=size),
+           '-c', synthetic.make_landcover(anc_dir, size=size),
+           '-w', synthetic.make_worldcover(anc_dir, size=size), '--browse',
+           '--tiles-per-device', '1', '--product-version', '0.1']
+    shoreline = synthetic.make_shoreline(anc_dir, size=size)
+    host_ocean = create_ocean_mask(
+        shoreline, 1, anc_dir, synthetic.geotransform(),
+        CRS.from_epsg(synthetic.EPSG).to_wkt(), size, size)
+    say(f'tiles written in {time.perf_counter() - t0:.1f} s')
+
+    md = synthetic.HLS_METADATA
+    scale, offset = float(md['scale_factor']), float(md['add_offset'])
+    layers = ['WTR', 'BWTR', 'CONF', 'DIAG', 'WTR-1', 'WTR-2', 'LAND',
+              'SHAD', 'CLOUD', 'DEM', 'BROWSE']
+    names = [os.path.basename(d) for d in dirs]
+    # 6 jobs over n cards: ceil(6 / n) batches, each launching on every card
+    batches = -(-len(dirs) // n_cards)
+    for label, extra, expect, mode in (
+            ('d (int16, mask)', [], ('wtr_k1', 'wtr_k5', 'wtr_k6'), 'mask'),
+            ('e (scaled, device scale)', ['--scaled'],
+             ('wtr_k3', 'wtr_k4', 'wtr_k5', 'wtr_k6'), 'mask'),
+            ('f (int16, cover, shoreline)',
+             ['--mask-adjacent-to-cloud-mode', 'cover', '-s', shoreline],
+             ('wtr_k1', 'wtr_k2', 'wtr_k5', 'wtr_k6'), 'cover')):
+        key = label[0]
+        outs = {}
+        for devices in ('cuda', 'cuda:0'):
+            os.environ['PROTEUS_TPU_TORCH_DEVICE'] = devices
+            out = os.path.join(workdir, f'multi_{key}_{devices[-1]}')
+            for k in range(n_cards):
+                torch.cuda.reset_peak_memory_stats(k)
+            launches = _run_campaign(
+                torch, f'{key} on {devices}', dirs + ['-o', out] + anc + extra,
+                expect, os.path.join(workdir, f'multi_stats_{key}.json'),
+                n_tiles=len(dirs))
+            if devices == 'cuda':
+                peaks = [torch.cuda.max_memory_allocated(k)
+                         for k in range(n_cards)]
+                if min(peaks) == 0:
+                    raise AssertionError(f'campaign {key}: a card ran nothing'
+                                         f' (peak bytes {peaks})')
+                for name in expect:
+                    # in 'cover' both passes count K5 and K6
+                    calls = 2 if mode == 'cover' and name in (
+                        'wtr_k5', 'wtr_k6') else 1
+                    if launches[name] != calls * batches * n_cards:
+                        raise AssertionError(
+                            f'campaign {key}: {name} launched '
+                            f'{launches[name]} times, not {calls} a card a '
+                            f'batch ({calls * batches * n_cards})')
+                say(f'  peak device memory a card, GiB: '
+                    f'{[round(p / 2**30, 3) for p in peaks]}')
+            outs[devices] = {n: _read_layers(os.path.join(out, n), n)
+                             for n in names}
+        for n in names:
+            _same_products(f'{key} {n}', outs['cuda'][n], outs['cuda:0'][n],
+                           layers)
+        for t in range(3):
+            got = outs['cuda'][names[t]]
+            _same_products(f'{key} copy of {names[t]}',
+                           outs['cuda'][names[t + 3]], got, layers)
+            tile_bands = bands[t]
+            if key == 'e':
+                tile_bands = {k: scale * (np.asarray(v, dtype=np.float32)
+                                          - offset)
+                              for k, v in tile_bands.items()}
+            ocean = host_ocean if key == 'f' else None
+            _hold_against_oracle(oracle, f'{key} {names[t]} (multi-card)',
+                                 got, tile_bands, fmasks[t], invalids[t],
+                                 mode, ocean=ocean)
+        say(f'campaign {key}: {n_cards} cards == card 0 alone on all 11 '
+            f'layers of 6 jobs; the copies == their tiles; tiles == oracle '
+            f'(bit for bit)')
+    os.environ['PROTEUS_TPU_TORCH_DEVICE'] = DEVICE
+
+
+def _check_no_jax():
+    loaded = sorted(m for m in sys.modules
+                    if m == 'jax' or m.split('.')[0] == 'proteus_tpu')
+    if loaded:
+        raise AssertionError(f'modules of jax or proteus_tpu were imported: '
+                             f'{loaded}')
+
+
+def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script '
@@ -574,24 +1190,51 @@ def main():
               file=sys.stderr)
         return 2
 
+    os.environ['PROTEUS_TPU_STAGE_TIMES'] = '1'
+    multi_only = '--multi-gpu' in (sys.argv[1:] if argv is None else argv)
     phase_device(torch)
     phase_build()
-    stats = phase_kernel_vs_plain(torch)
+    if multi_only:
+        if torch.cuda.device_count() < 2:
+            raise AssertionError('--multi-gpu needs two or more cards')
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_') as workdir:
+            phase_multi_gpu(torch, workdir)
+        _check_no_jax()
+        say(nvidia_smi_line())
+        say(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+        return 0
+    stats, inputs, planes, fmasks, copy_bw = phase_kernel_vs_plain(torch)
+    stats.update(phase_batched_vs_plain(torch, inputs, planes, fmasks,
+                                        copy_bw))
+    del inputs, planes, fmasks
     torch.cuda.empty_cache()
-    os.environ['PROTEUS_TPU_TORCH_DEVICE'] = 'cuda'
+    os.environ['PROTEUS_TPU_TORCH_DEVICE'] = DEVICE
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as workdir:
-        launches = phase_main_path(torch, workdir)
-    if 'jax' in sys.modules:
-        raise AssertionError('jax was imported')
+        launches, tile = phase_main_path(torch, workdir)
+        for name, n in phase_campaign(torch, workdir, tile).items():
+            launches[name] = launches.get(name, 0) + n
+        phase_step_sweep(torch, tile, workdir)
+        if torch.cuda.device_count() > 1:
+            phase_multi_gpu(torch, workdir)
+        else:
+            say('== phase 6: skipped, one card visible')
+    _check_no_jax()
 
-    replaces = {'wtr_k1': 351, 'wtr_k2': 465, 'wtr_k3': 291}
+    replaces = {'wtr_k1': 'ops/pallas/wtr_kernel.py:351',
+                'wtr_k2': 'ops/pallas/wtr_kernel.py:465',
+                'wtr_k3': 'ops/pallas/wtr_kernel.py:291',
+                'wtr_k4': 'ops/pallas/wtr_kernel.py:302',
+                'wtr_k5': 'ops/pallas/wtr_kernel.py:483',
+                'wtr_k6': 'parallel/campaign.py:251'}
     say(nvidia_smi_line())
     say(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': 'proteus_tpu_torch/ops/csrc/wtr_kernel.cu',
-        'replaces': f'proteus_tpu/ops/pallas/wtr_kernel.py:{line}',
-        'launches': launches[name], **stats[name]}
-        for name, line in replaces.items()]}))
+        'replaces': f'proteus_tpu/{where}',
+        'launches': launches.get(name, 0), **stats[name]}
+        for name, where in replaces.items()]}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

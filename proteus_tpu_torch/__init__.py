@@ -3,19 +3,24 @@ kernels written by hand for NVIDIA Hopper (sm_90a).
 
 The package mirrors the layout of ``proteus_tpu`` so that every module has
 an obvious counterpart there, and it is held bit for bit against that
-package by the ``tests/test_torch_*.py`` parity tests. It never imports
-``jax``: the host-only modules of ``proteus_tpu`` (GeoTIFF/COG I/O, CRS
-math, the host half of the warp, runconfig, metadata and the product
-writer) are imported as they are, all through ``proteus_tpu_torch.host``;
-the numpy helpers that live in modules which do import ``jax`` are copied,
-each copy naming its source lines.
+package by the ``tests/test_torch_*.py`` parity tests. It imports neither
+``jax`` nor anything of ``proteus_tpu``: the host code it needs (GeoTIFF/COG
+I/O and the native codec, CRS math, the host half of the warp, polygons,
+runconfig, metadata and the product writer) is copied from there into the
+same place here, with only the JAX branches routed to the port's own device
+code.
 
 - ``proteus_tpu_torch.device``   explicit device resolution (no fallback)
-- ``proteus_tpu_torch.host``     the host code shared with ``proteus_tpu``
-- ``proteus_tpu_torch.core``     error-free float32 transforms
-- ``proteus_tpu_torch.models``   the per-pixel chain, LAND and SHAD
-- ``proteus_tpu_torch.ops``      the fused CUDA kernel, its build, resampling
-- ``proteus_tpu_torch.geo``      the device half of warp-as-gather
-- ``proteus_tpu_torch.runtime``  the product orchestrator
-- ``proteus_tpu_torch.cli``      the ``dswx_hls`` entry point
+- ``proteus_tpu_torch.core``     constants, thresholds, error-free transforms
+- ``proteus_tpu_torch.config``   runconfig defaults, schema and validation
+- ``proteus_tpu_torch.io``       HLS ingest, GeoTIFF/COG, PNG, VRT, shapefiles
+- ``proteus_tpu_torch.native``   the native TIFF codec, built at first use
+- ``proteus_tpu_torch.geo``      CRS, coverage, warp-as-gather, polygons
+- ``proteus_tpu_torch.models``   the per-pixel chain, LAND, SHAD, host derive
+- ``proteus_tpu_torch.ops``      the fused CUDA kernels, their build
+- ``proteus_tpu_torch.parallel`` the campaign over the local GPUs
+- ``proteus_tpu_torch.runtime``  the product orchestrator and writer
+- ``proteus_tpu_torch.cli``      the ``dswx_hls`` and ``dswx_campaign`` entry
+  points
+- ``proteus_tpu_torch.testing``  the synthetic tile writers
 """

@@ -12,9 +12,10 @@ machine without it is an error, never a silent run on the CPU.
 import logging
 import os
 
+from proteus_tpu_torch.cli.args import get_dswx_hls_cli_parser
+from proteus_tpu_torch.config.runconfig import parse_runconfig_file
 from proteus_tpu_torch.device import resolve_device
-from proteus_tpu_torch.host import (create_logger, get_dswx_hls_cli_parser,
-                                    parse_runconfig_file)
+from proteus_tpu_torch.runtime.logging_util import create_logger
 
 logger = logging.getLogger('dswx_hls')
 

@@ -1,14 +1,16 @@
-"""Warp-as-gather on the device: reproject ancillary rasters onto the
-product grid.
+"""Warp-as-gather: reproject ancillary rasters onto the product grid.
 
-Port of the device half of ``proteus_tpu/geo/warp.py:463-945``
-(``_device_resample_impl`` and ``warp_to_grid_device``). The host half
-(``SourceRaster``, ``GridTransformer``, ``_resolve_window``,
-``_auto_grid_spacing``, ``_dd_split``, ``_resample_block``,
-``warp_to_grid``) is imported from ``proteus_tpu.geo.warp`` (through
-``proteus_tpu_torch.host``), not copied.
+Port of ``proteus_tpu/geo/warp.py``. The host half (``SourceRaster``,
+``GridTransformer``, ``_resolve_window``, ``_auto_grid_spacing``,
+``warp_to_grid``, ``_resample_block``, ``_dd_split``,
+``worldcover_year_of``) is copied from :27-470 and :948-977: every target
+pixel center is inverse-projected to the source CRS with the exact float64
+engine of ``proteus_tpu_torch.geo.crs``, and the source raster is sampled
+with the requested kernel (nearest / bilinear / cubic with GDAL's a=-0.5
+weights, average) honoring the source nodata.
 
-The source-coordinate lattice is interpolated in double-float32
+The device half (``device_resample``, ``warp_to_grid_device``) ports
+:463-945. The source-coordinate lattice is interpolated in double-float32
 error-free transforms (``proteus_tpu_torch.core.eft``); cubic and bilinear
 kernels accumulate in double-float32 too. Every pixel whose device value
 sits inside the ambiguity band of a floor, a tap selection or an f32
@@ -16,15 +18,457 @@ rounding boundary is re-evaluated on the host with the float64 pipeline
 of ``warp_to_grid``, so the result is bit-identical to the host warp.
 """
 
+import logging
+from datetime import datetime
+
 import numpy as np
 import torch
 
 from proteus_tpu_torch.core.eft import f32, two_prod, two_sum
-from proteus_tpu_torch.host import (CRS, _KERNEL_RADIUS, GridTransformer,
-                                    SourceRaster, _auto_grid_spacing,
-                                    _dd_split, _resample_block,
-                                    _resolve_window, transform_points,
-                                    warp_to_grid)
+from proteus_tpu_torch.geo.crs import CRS, transform_points
+from proteus_tpu_torch.io.tiff import TiffReader
+
+logger = logging.getLogger('dswx_hls')
+
+# supported resampling kernels and their tap radii (the reference only
+# uses 'nearest' and 'cubic'; 'cubicspline' maps to cubic convolution;
+# 'average' is footprint-based — its radius is data-dependent and
+# resolved per call)
+_KERNEL_RADIUS = {'nearest': 0, 'bilinear': 1, 'cubic': 2,
+                  'cubicspline': 2, 'average': 2}
+
+
+def _cubic_weights(t):
+    """GDAL cubic-convolution weights (a = -0.5) for tap offsets
+    -1, 0, 1, 2 given the fractional position t in [0, 1)."""
+    a = -0.5
+    def w(x):
+        ax = np.abs(x)
+        return np.where(
+            ax <= 1, (a + 2) * ax ** 3 - (a + 3) * ax ** 2 + 1,
+            np.where(ax < 2,
+                     a * ax ** 3 - 5 * a * ax ** 2 + 8 * a * ax - 4 * a,
+                     0.0))
+    return [w(t + 1), w(t), w(1 - t), w(2 - t)]
+
+
+class SourceRaster:
+    """A windowed view of the source raster with wrap/nodata handling."""
+
+    def __init__(self, path):
+        self.reader = TiffReader(path)
+        self.gt = self.reader.geotransform()
+        self.crs = self.reader.crs() or CRS.from_epsg(4326)
+        self.width = self.reader.width
+        self.length = self.reader.length
+        self.nodata = self.reader.nodata()
+        x0, dx, _, y0, _, dy = self.gt
+        # global geographic sources wrap in longitude
+        self.wraps = (self.crs.is_geographic
+                      and abs(abs(self.width * dx) - 360.0) < 1e-6)
+
+    def close(self):
+        self.reader.close()
+
+    def pixel_coords(self, x, y):
+        """Continuous pixel-space coords (GDAL convention: 0..w, 0..h)."""
+        x0, dx, _, y0, _, dy = self.gt
+        u = (x - x0) / dx
+        v = (y - y0) / dy
+        if self.wraps:
+            u = u % self.width
+        return u, v
+
+
+class GridTransformer:
+    """Grid-interpolated coordinate transformer.
+
+    Evaluates the exact float64 transform on a coarse lattice (every
+    ``spacing`` target pixels) and bilinearly interpolates between lattice
+    nodes — the same accelerization GDAL's approximate transformer uses.
+    The Transverse Mercator mapping is analytic and smooth: with the
+    default 8 px (240 m) spacing the interpolation error is bounded by
+    (240 m)^2 / (2 R_earth) ~ 5 mm, four orders of magnitude below the
+    10 m source grids. Longitudes are unwrapped across the antimeridian so
+    interpolation stays continuous.
+    """
+
+    def __init__(self, tile_crs, src_crs, tx0, ty0, dx, dy, out_h, out_w,
+                 spacing=8):
+        self.spacing = spacing
+        gi = np.arange(0, out_h + 2 * spacing, spacing, dtype=np.float64)
+        gj = np.arange(0, out_w + 2 * spacing, spacing, dtype=np.float64)
+        jj, ii = np.meshgrid(gj, gi)
+        px = tx0 + (jj + 0.5) * dx
+        py = ty0 + (ii + 0.5) * dy
+        sx, sy = transform_points(tile_crs, src_crs, px.ravel(),
+                                  py.ravel())
+        sx = sx.reshape(jj.shape)
+        sy = sy.reshape(jj.shape)
+        if CRS.from_any(src_crs).is_geographic:
+            # unwrap longitude jumps > 180 deg along both axes
+            sx = np.unwrap(sx, period=360.0, axis=1)
+            sx = np.unwrap(sx, period=360.0, axis=0)
+        self.sx = sx
+        self.sy = sy
+
+    def __call__(self, i, j):
+        """Transform target pixel indices (float arrays) to source CRS
+        coordinates via bilinear lattice interpolation."""
+        fi = i / self.spacing
+        fj = j / self.spacing
+        i0 = np.floor(fi).astype(np.int64)
+        j0 = np.floor(fj).astype(np.int64)
+        i0 = np.clip(i0, 0, self.sx.shape[0] - 2)
+        j0 = np.clip(j0, 0, self.sx.shape[1] - 2)
+        wi = fi - i0
+        wj = fj - j0
+        out = []
+        for grid in (self.sx, self.sy):
+            g00 = grid[i0, j0]
+            g01 = grid[i0, j0 + 1]
+            g10 = grid[i0 + 1, j0]
+            g11 = grid[i0 + 1, j0 + 1]
+            top = g00 + (g01 - g00) * wj
+            bot = g10 + (g11 - g10) * wj
+            out.append(top + (bot - top) * wi)
+        return out[0], out[1]
+
+
+def _resolve_window(src, u, v, radius):
+    """Window of source pixels needed for the given pixel coords."""
+    pad = radius + 2
+    if src.wraps:
+        return 0, 0, src.length, src.width  # modulo access: read it all
+    c0 = int(np.floor(np.nanmin(u))) - pad
+    c1 = int(np.ceil(np.nanmax(u))) + pad
+    r0 = int(np.floor(np.nanmin(v))) - pad
+    r1 = int(np.ceil(np.nanmax(v))) + pad
+    c0 = max(c0, 0)
+    r0 = max(r0, 0)
+    c1 = min(c1, src.width)
+    r1 = min(r1, src.length)
+    return r0, c0, max(r1 - r0, 0), max(c1 - c0, 0)
+
+
+def _gather(data, valid, rows, cols, wraps, width):
+    h, w = data.shape
+    if wraps:
+        cols = cols % width
+    inb = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    r = np.clip(rows, 0, h - 1)
+    c = np.clip(cols, 0, w - 1)
+    vals = data[r, c]
+    ok = inb if valid is None else (inb & valid[r, c])
+    return vals, ok
+
+
+def _auto_grid_spacing(tile_crs, dx):
+    """Lattice spacing in target pixels for ~240 m physical spacing
+    (interpolation error ~(240 m)^2 / 2R ~ 5 mm); minimum 8 px.
+
+    Power of two so lattice weights w = i/spacing - floor(i/spacing) are
+    exact in BOTH float64 (host) and float32 (device) — a precondition
+    for the bit-equal device nearest path (see _device_resample_impl).
+    """
+    if tile_crs.is_geographic:
+        return 8
+    target = max(8.0, 240.0 / max(abs(dx), 1e-9))
+    return int(2 ** round(np.log2(target)))
+
+
+def warp_to_grid(input_file, geotransform, projection, length, width,
+                 resample_algorithm='nearest', margin_in_pixels=0,
+                 chunk_rows=1024, dtype=None, transformer='grid',
+                 grid_spacing=None):
+    """Reproject ``input_file`` onto the target grid (plus margin).
+
+    Returns an array of shape (length + 2*margin, width + 2*margin) in the
+    source dtype (or ``dtype``). Pixels with no valid source data get the
+    source nodata value (or 0 if the source has none), matching the
+    gdal.Warp initialization the reference relies on.
+    """
+    m = margin_in_pixels
+    x0, dx, _, y0, _, dy = geotransform
+    tx0 = x0 - m * dx
+    ty0 = y0 - m * dy
+    out_h = length + 2 * m
+    out_w = width + 2 * m
+    tile_crs = CRS.from_any(projection)
+    if grid_spacing is None:
+        grid_spacing = _auto_grid_spacing(tile_crs, dx)
+
+    src = SourceRaster(input_file)
+    try:
+        radius = _KERNEL_RADIUS.get(resample_algorithm)
+        if radius is None:
+            raise ValueError(
+                f'unsupported resample algorithm: {resample_algorithm}')
+
+        # coarse boundary sweep to find the needed source window
+        bj = np.linspace(0, out_w, 256)
+        bi = np.linspace(0, out_h, 256)
+        edge_j = np.concatenate([bj, bj, np.zeros_like(bi),
+                                 np.full_like(bi, out_w)])
+        edge_i = np.concatenate([np.zeros_like(bj),
+                                 np.full_like(bj, out_h), bi, bi])
+        ex = tx0 + edge_j * dx
+        ey = ty0 + edge_i * dy
+        sx, sy = transform_points(tile_crs, src.crs, ex, ey)
+        eu, ev = src.pixel_coords(sx, sy)
+        r0, c0, wh, ww = _resolve_window(src, eu, ev, radius)
+        if wh == 0 or ww == 0:
+            fill = src.nodata if src.nodata is not None else 0
+            out = np.full((out_h, out_w), fill)
+            return out.astype(dtype or src.reader.dtype)
+
+        data = src.reader.read(window=(r0, c0, wh, ww))
+        if data.ndim == 3:
+            data = data[:, :, 0]
+        out_dtype = dtype or data.dtype
+        nodata = src.nodata
+        if nodata is not None and np.isnan(nodata):
+            valid = ~np.isnan(data.astype(np.float64))
+        elif nodata is not None:
+            valid = data != nodata
+        else:
+            valid = np.ones(data.shape, dtype=bool)
+        fill = nodata if nodata is not None else 0
+
+        logger.info(f'    relocating file: {input_file}'
+                    f' ({resample_algorithm}, window {wh}x{ww})')
+
+        out = np.full((out_h, out_w), fill, dtype=np.float64)
+        fdata = data.astype(np.float64)
+        all_valid = bool(valid.all())
+
+        grid_tx = None
+        if transformer == 'grid':
+            grid_tx = GridTransformer(tile_crs, src.crs, tx0, ty0, dx, dy,
+                                      out_h, out_w, spacing=grid_spacing)
+
+        for row0 in range(0, out_h, chunk_rows):
+            rows = min(chunk_rows, out_h - row0)
+            if resample_algorithm == 'average':
+                # footprint-based: transform the PIXEL CORNERS
+                # (index - 0.5 evaluates the center-sampled transform at
+                # the corner positions)
+                jj, ii = np.meshgrid(
+                    np.arange(out_w + 1, dtype=np.float64) - 0.5,
+                    np.arange(row0, row0 + rows + 1,
+                              dtype=np.float64) - 0.5)
+            else:
+                jj, ii = np.meshgrid(np.arange(out_w, dtype=np.float64),
+                                     np.arange(row0, row0 + rows,
+                                               dtype=np.float64))
+            if grid_tx is not None:
+                sx, sy = grid_tx(ii, jj)
+            else:
+                px = tx0 + (jj + 0.5) * dx
+                py = ty0 + (ii + 0.5) * dy
+                sx, sy = transform_points(tile_crs, src.crs, px, py)
+            u, v = src.pixel_coords(sx, sy)
+            u = u - c0
+            v = v - r0
+            block_wraps = src.wraps and c0 == 0 and ww == src.width
+            if resample_algorithm == 'average':
+                block = _resample_block_average(
+                    fdata, None if all_valid else valid, u, v, fill,
+                    wraps=block_wraps, width=ww)
+            else:
+                block = _resample_block(fdata, valid, u, v,
+                                        resample_algorithm, fill,
+                                        wraps=block_wraps, width=ww,
+                                        all_valid=all_valid)
+            out[row0:row0 + rows, :] = block
+
+        if np.dtype(out_dtype).kind in 'ui':
+            out = np.rint(out)
+            info = np.iinfo(out_dtype)
+            out = np.clip(out, info.min, info.max)
+        return out.astype(out_dtype)
+    finally:
+        src.close()
+
+
+def _resample_block_average(fdata, valid, uc, vc, fill, wraps, width,
+                            max_span=256):
+    """GDAL 'average' semantics: area-weighted mean over the source-space
+    bounding box of each target pixel's footprint.
+
+    ``uc``/``vc`` are the CORNER coordinates of the target pixels in
+    window-relative source pixel space, shape (rows+1, cols+1) — corner
+    (i, j) is the top-left of pixel (i, j). Each source cell
+    intersecting the footprint bbox contributes with weight equal to its
+    overlap fraction per axis (gdal.Warp GRA_Average,
+    gdalwarpkernel.cpp GWKAverageOrMode); nodata cells are skipped and
+    the sum renormalized; zero total weight -> fill.
+    """
+    h, w = fdata.shape
+    x00, x01 = uc[:-1, :-1], uc[:-1, 1:]
+    x10, x11 = uc[1:, :-1], uc[1:, 1:]
+    y00, y01 = vc[:-1, :-1], vc[:-1, 1:]
+    y10, y11 = vc[1:, :-1], vc[1:, 1:]
+    if wraps:
+        # make the quad continuous around its top-left corner so
+        # seam-crossing footprints get a sane bbox (gathers wrap below)
+        def unwrap(x):
+            return x - width * np.round((x - x00) / width)
+        x01, x10, x11 = unwrap(x01), unwrap(x10), unwrap(x11)
+    xmin = np.minimum(np.minimum(x00, x01), np.minimum(x10, x11))
+    xmax = np.maximum(np.maximum(x00, x01), np.maximum(x10, x11))
+    ymin = np.minimum(np.minimum(y00, y01), np.minimum(y10, y11))
+    ymax = np.maximum(np.maximum(y00, y01), np.maximum(y10, y11))
+
+    bad = ~(np.isfinite(xmin) & np.isfinite(xmax)
+            & np.isfinite(ymin) & np.isfinite(ymax))
+    xmin = np.where(bad, 0.0, xmin)
+    xmax = np.where(bad, 0.0, xmax)
+    ymin = np.where(bad, 0.0, ymin)
+    ymax = np.where(bad, 0.0, ymax)
+
+    ix0 = np.floor(xmin).astype(np.int64)
+    iy0 = np.floor(ymin).astype(np.int64)
+    nx = int(np.max(np.ceil(xmax) - ix0)) if xmin.size else 0
+    ny = int(np.max(np.ceil(ymax) - iy0)) if ymin.size else 0
+    if nx > max_span or ny > max_span:
+        raise ValueError(
+            f'average footprint spans {nx}x{ny} source cells; '
+            f'downscale factor too extreme (cap {max_span})')
+
+    acc = np.zeros(xmin.shape, np.float64)
+    wacc = np.zeros(xmin.shape, np.float64)
+    for dy in range(max(ny, 1)):
+        cy = iy0 + dy
+        wy = np.clip(np.minimum(cy + 1.0, ymax)
+                     - np.maximum(cy, ymin), 0.0, None)
+        rows_in = (cy >= 0) & (cy < h)
+        cyc = np.clip(cy, 0, h - 1)
+        for dx in range(max(nx, 1)):
+            cx = ix0 + dx
+            wx = np.clip(np.minimum(cx + 1.0, xmax)
+                         - np.maximum(cx, xmin), 0.0, None)
+            if wraps:
+                cxc = cx % width
+                cols_in = np.ones(cx.shape, bool)
+            else:
+                cols_in = (cx >= 0) & (cx < w)
+                cxc = np.clip(cx, 0, w - 1)
+            wgt = wx * wy
+            vals = fdata[cyc, cxc]
+            ok = rows_in & cols_in & (wgt > 0)
+            if valid is not None:
+                ok = ok & valid[cyc, cxc]
+            acc += np.where(ok, vals * wgt, 0.0)
+            wacc += np.where(ok, wgt, 0.0)
+    with np.errstate(invalid='ignore', divide='ignore'):
+        res = acc / wacc
+    return np.where((wacc > 0) & ~bad, res, fill)
+
+
+def _resample_block(fdata, valid, u, v, algorithm, fill, wraps, width,
+                    all_valid=False):
+    h, w = fdata.shape
+    if algorithm == 'nearest':
+        rows = np.floor(v).astype(np.int64)
+        cols = np.floor(u).astype(np.int64)
+        vals, ok = _gather(fdata, None if all_valid else valid,
+                           rows, cols, wraps, width)
+        return np.where(ok, vals, fill)
+
+    # kernel-based: fractional position relative to pixel centers
+    uc = u - 0.5
+    vc = v - 0.5
+    iu = np.floor(uc).astype(np.int64)
+    iv = np.floor(vc).astype(np.int64)
+    fu = uc - iu
+    fv = vc - iv
+
+    if algorithm == 'bilinear':
+        taps = [(0, 1 - fv), (1, fv)]
+        cols_w = [(0, 1 - fu), (1, fu)]
+    else:  # cubic / cubicspline
+        wv = _cubic_weights(fv)
+        wu = _cubic_weights(fu)
+        taps = list(zip((-1, 0, 1, 2), wv))
+        cols_w = list(zip((-1, 0, 1, 2), wu))
+
+    # pad the source so kernel taps never need bounds masks: data is
+    # edge-replicated (wrap sources wrap in x); validity is False in the
+    # pad so nodata renormalization handles true out-of-bounds taps.
+    PAD = 2
+    x_mode = 'wrap' if wraps else 'edge'
+    dpad = np.pad(np.pad(fdata, ((PAD, PAD), (0, 0)), mode='edge'),
+                  ((0, 0), (PAD, PAD)), mode=x_mode)
+    center_in = (u >= 0) & (u <= w) & (v >= 0) & (v <= h)
+    if wraps:
+        iu = iu % width
+        center_in = (v >= 0) & (v <= h)
+    rbase = np.clip(iv, -PAD, h + PAD - 1) + PAD
+    cbase = np.clip(iu, -PAD, w + PAD - 1) + PAD
+
+    def _tap_rows(dr):
+        # coordinates far outside the padded window (possible when the
+        # tile extends past the source) clamp to the pad; such pixels
+        # are outside center_in and masked to fill regardless
+        return np.clip(rbase + dr, 0, h + 2 * PAD - 1)
+
+    def _tap_cols(dc):
+        return np.clip(cbase + dc, 0, w + 2 * PAD - 1)
+
+    if all_valid and not wraps:
+        # fast path: weights sum to 1 exactly; edge replication stands in
+        # for GDAL's kernel clamping at the source border
+        acc = np.zeros(u.shape, dtype=np.float64)
+        for dr, wr in taps:
+            rr = _tap_rows(dr)
+            for dc, wc in cols_w:
+                acc += (wr * wc) * dpad[rr, _tap_cols(dc)]
+        return np.where(center_in, acc, fill)
+
+    # validity pads follow the data pads in x: wrapping sources wrap
+    # their validity modulo the width (a seam-crossing tap whose wrapped
+    # column holds valid data IS valid — matching the device gather);
+    # rows and non-wrapping x pad with False so out-of-window taps are
+    # dropped and renormalized
+    if all_valid:
+        vpad = None
+    else:
+        vpad = np.pad(valid, ((PAD, PAD), (0, 0)), mode='constant',
+                      constant_values=False)
+        if wraps:
+            vpad = np.pad(vpad, ((0, 0), (PAD, PAD)), mode='wrap')
+        else:
+            vpad = np.pad(vpad, ((0, 0), (PAD, PAD)), mode='constant',
+                          constant_values=False)
+    acc = np.zeros(u.shape, dtype=np.float64)
+    wacc = np.zeros(u.shape, dtype=np.float64)
+    for dr, wr in taps:
+        rr = _tap_rows(dr)
+        for dc, wc in cols_w:
+            cc = _tap_cols(dc)
+            wgt = wr * wc
+            vals = dpad[rr, cc]
+            if vpad is not None:
+                ok = vpad[rr, cc]
+                acc += np.where(ok, vals * wgt, 0.0)
+                wacc += np.where(ok, wgt, 0.0)
+            else:
+                acc += vals * wgt
+                wacc += wgt
+    with np.errstate(invalid='ignore', divide='ignore'):
+        res = acc / wacc
+    return np.where(center_in & (wacc > 1e-9), res, fill)
+
+
+def _dd_split(x):
+    """Split a float64 array into a double-float32 (hi, lo) pair.
+
+    hi + lo carries the top ~48 bits of x; the residual is <= |x|*2^-48.
+    """
+    hi = x.astype(np.float32)
+    lo = (x - hi.astype(np.float64)).astype(np.float32)
+    return hi, lo
 
 
 def torch_dtype(np_dtype):
@@ -270,7 +714,7 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
     """``warp_to_grid`` with the interpolation and gather on ``device``.
 
     Returns a tensor on ``device``, bit-identical to the host
-    ``proteus_tpu.geo.warp.warp_to_grid`` for every resampler.
+    ``warp_to_grid`` for every resampler.
     """
     if device is None:
         raise ValueError('warp_to_grid_device: device is required')
@@ -385,3 +829,35 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
         return out.to(torch_dtype(out_dtype))
     finally:
         src.close()
+
+
+def worldcover_year_of(worldcover_file, worldcover_file_description=None):
+    """Extract the WorldCover dataset year (reference
+    dswx_hls.py:1055-1095): from time_start/time_end metadata, else from a
+    year in the description, else 2000."""
+    with TiffReader(worldcover_file) as r:
+        md = r.metadata()
+    if 'time_start' in md and 'time_end' in md:
+        fmt = '%Y-%m-%dT%H:%M:%SZ'
+        t0 = datetime.strptime(md['time_start'], fmt)
+        t1 = datetime.strptime(md['time_end'], fmt)
+        year = (t0 + (t1 - t0) / 2.0).year
+        logger.info(f'    ESA WorldCover map year: {year}'
+                    ' (source: WorldCover file metadata)')
+        return year
+    if worldcover_file_description:
+        logger.warning('WARNING Could not read the ESA WorldCover 10m'
+                       ' metadata fields `time_start` and/or `time_end`')
+        for year in range(2000, 2100):
+            if str(year) in worldcover_file_description:
+                logger.info(f'    ESA WorldCover map year: {year}'
+                            ' (source: WorldCover file description)')
+                return year
+        logger.warning('WARNING Could not infer the ESA WorldCover 10m'
+                       ' data year from the WorldCover file description.'
+                       ' Considering year as 2000.')
+        return 2000
+    logger.warning('WARNING Could not read the ESA WorldCover 10m metadata'
+                   ' fields `time_start` and/or `time_end`.'
+                   ' Considering year as 2000.')
+    return 2000

@@ -6,7 +6,7 @@ _compute_browse_array, dswx_hls.py:3057-3129).
 
 import torch
 
-from proteus_tpu_torch.host import constants as C
+from proteus_tpu_torch.core import constants as C
 from proteus_tpu_torch.models.dswx.interpretation import collapse_wtr_classes
 
 

@@ -12,7 +12,8 @@ from typing import Tuple
 
 import torch
 
-from proteus_tpu_torch.host import HlsThresholds, constants as C
+from proteus_tpu_torch.core import constants as C
+from proteus_tpu_torch.core.thresholds import HlsThresholds
 from proteus_tpu_torch.models.dswx import masking
 from proteus_tpu_torch.models.dswx.browse import compute_browse_array
 from proteus_tpu_torch.models.dswx.diagnostics import (

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from proteus_tpu_torch.core.unported import INEXACT_THRESHOLDS, not_ported
-from proteus_tpu_torch.host import ExactThresholds, HlsThresholds
+from proteus_tpu_torch.core.thresholds import ExactThresholds, HlsThresholds
 
 _I32 = torch.int32
 
@@ -141,3 +141,13 @@ def get_binary_representation(diagnostic_layer_decimal, nbits=6):
     if nbits > 5:
         out = torch.where(((d >> 5) & 1) != 0, 65535, out)
     return out.to(torch.uint16)
+
+
+# copied from proteus_tpu/models/dswx/diagnostics.py:242-248 (numpy only)
+def binary_representation_lut():
+    """33-entry uint16 LUT equivalent of get_binary_representation."""
+    lut = np.zeros(33, dtype=np.uint16)
+    for v in range(32):
+        lut[v] = sum(((v >> i) & 1) * 10 ** i for i in range(5))
+    lut[32] = 65535
+    return lut

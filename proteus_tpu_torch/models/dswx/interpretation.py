@@ -7,7 +7,7 @@ are built on the host once and indexed as tensors on the layer's device.
 import numpy as np
 import torch
 
-from proteus_tpu_torch.host import constants as C
+from proteus_tpu_torch.core import constants as C
 
 _INTERP_LUT = C.build_interpretation_lut()          # 33 entries
 _COLLAPSE_LUT = C.build_collapse_lut()              # 256 entries

@@ -8,7 +8,7 @@ combined through the threshold hierarchy.
 
 import torch
 
-from proteus_tpu_torch.host import constants as C
+from proteus_tpu_torch.core import constants as C
 from proteus_tpu_torch.ops.resample import decimate_by_summation
 
 

@@ -10,9 +10,10 @@ import numpy as np
 import torch
 
 from proteus_tpu_torch.core.unported import INEXACT_THRESHOLDS, not_ported
-from proteus_tpu_torch.host import (SCALAR_MAX_DEN, SCALAR_MAX_NUM,
-                                    HlsThresholds, constants as C,
-                                    to_exact_fraction)
+from proteus_tpu_torch.core import constants as C
+from proteus_tpu_torch.core.thresholds import (SCALAR_MAX_DEN,
+                                               SCALAR_MAX_NUM, HlsThresholds,
+                                               to_exact_fraction)
 from proteus_tpu_torch.models.dswx.diagnostics import f32
 from proteus_tpu_torch.ops.morphology import binary_dilation_masked
 

@@ -1,17 +1,34 @@
-// Fused DSWx-HLS per-pixel chain for NVIDIA Hopper: kernel slices K1, K2
-// and K3 of proteus_tpu/ops/pallas/wtr_kernel.py::make_wtr_kernel.
+// Fused DSWx-HLS per-pixel chain for NVIDIA Hopper: kernel slices K1 to
+// K6 of proteus_tpu/ops/pallas/wtr_kernel.py::make_wtr_kernel.
 //
 // From the six bands, the fmask, the invalid mask and the optional ocean /
 // shadow / landcover planes they write DIAG (uint16 pseudo-binary) and
-// WTR-1, WTR-2, WTR, BWTR, CONF, CLOUD and BROWSE (uint8). Their plain
-// PyTorch twin is proteus_tpu_torch/models/dswx/chain.py::dswx_chain.
+// WTR-1, WTR-2, WTR, BWTR, CONF, CLOUD and BROWSE (uint8), or, with the
+// minimal outputs, the two packed planes PACKED_A and PACKED_B. Their
+// plain PyTorch twins are proteus_tpu_torch/models/dswx/chain.py::dswx_chain
+// and ops/wtr_kernel.py::wtr_layers_batched_plain.
 //
-//   K1  int16 bands, 'mask'/'ignore': wtr_pixel_kernel<int16_t>.
-//   K3  float32 (offset-and-scaled) bands: wtr_pixel_kernel<float>.
+//   K1  int16 bands, 'mask'/'ignore': wtr_pixel_kernel<int16_t, false>.
+//   K3  float32 (offset-and-scaled) bands: wtr_pixel_kernel<float, false>.
 //   K2  'cover': wtr_pixel_kernel (K1's or K3's body) stops before snow
 //       and writes one state byte a pixel; wtr_k2_kernel then runs the two
 //       masked dilations on 2-D tiles with their halo and finishes CLOUD,
 //       WTR, BWTR, CONF and BROWSE.
+//   K4  device scale: wtr_pixel_kernel<int16_t, true> reads raw int16
+//       bands and casts scale * (float32(band) - offset) per tile in
+//       registers, in the reference's order (io/hls.py:176), before K3's
+//       body; the block stages the batch's [B, 6] scales and offsets in
+//       shared memory once.
+//   K5  minimal outputs: the epilogue packs DIAG6, CLOUD, WTR-1 and WTR-2
+//       into PACKED_A = diag6 | (cloud & 3) << 6 and PACKED_B =
+//       (cloud >> 2) & 3 | widx(WTR-1) << 2 | widx(WTR-2) << 5 (CLOUD 0
+//       where it is fill; the inverse is host_derive.unpack_minimal) and
+//       writes none of the nine full-output bytes. In 'cover' mode pass A
+//       writes DIAG6 and the two index fields, and wtr_k2_kernel ORs the
+//       final CLOUD's four bits in.
+//   K6  batched launch: one launch for a [B, H, W] stack. The per-pixel
+//       pass strides over B*H*W (tile index i / (H*W)); wtr_k2_kernel
+//       takes the tile from blockIdx.z.
 //
 // Bound: HBM bytes; the work is a few dozen operations a pixel. Per pixel
 // of a 3660 x 3660 tile (13,395,600 px), main-path planes (shadow,
@@ -24,6 +41,12 @@
 //       state); pass B reads 2 B (state, WTR-2) and writes 5 B: 28 B/px,
 //       375.1 MB/tile, plus the halo's re-reads of the state, 66^2/32^2 =
 //       4.25 loads a pixel, which mostly hit L2.
+//   K4+K5+K6, the campaign's default (int16 bands with or without device
+//       scale, shadow and landcover): reads 16 B (the 48 B of scales and
+//       offsets a tile are nothing) and writes 2 B: 18 B/px, 241.1
+//       MB/tile. K4 against K3 halves the band bytes, K5 against full
+//       outputs cuts 9 B out to 2 B. With 'cover' pass A writes 3 B (the
+//       packed planes and the state) and pass B reads 3 B and writes 2 B.
 //
 // Design: the per-pixel kernels run one thread per pixel over the
 // flattened H*W with a grid-stride loop, so that neighbouring threads load
@@ -97,6 +120,7 @@ struct WtrFlags {
   int32_t mask_adjacent, apply_aerosol, cover;
   int32_t exclude_psw_aggressive, collapse, not_water_nodata, cloud_nodata,
       snow_nodata;
+  int32_t minimal;  // K5: PACKED_A/B instead of the full outputs
 };
 
 // product class values (proteus_tpu/core/constants.py)
@@ -105,6 +129,7 @@ constexpr int kOcean = 254;        // WTR_OCEAN_MASKED
 constexpr int kCloudMasked = 253;  // WTR_CLOUD_MASKED
 constexpr int kSnowMasked = 252;   // WTR_SNOW_MASKED
 constexpr int kAerosolMaxNir = 1000;  // AEROSOL_REMAPPING_MAX_NIR
+constexpr int kDiagFill6 = 32;     // DIAGNOSTIC_LAYER_NO_DATA_DECIMAL
 constexpr int kLcWater = 200;      // LAND water
 constexpr int kLcEvergreen = 201;  // LAND evergreen forest
 
@@ -116,6 +141,8 @@ constexpr int kStSnow = 0x02;    // fmask bit 4 (snow/ice)
 constexpr int kStAreas = 0x10;   // fmask bit 2 (adjacent) and CLOUD == 0
 constexpr int kStWater = 0x20;   // final WTR-2 in 1..4
 constexpr int kStInside = 0x40;  // set by wtr_k2_kernel: inside the image
+
+constexpr int kMaxBatch = 1024;  // K4 stages 48 B a tile in shared memory
 
 constexpr int kTile = 32;                   // output pixels a block side
 constexpr int kSnowSteps = 10, kUnmaskSteps = 7;
@@ -194,6 +221,17 @@ __device__ __forceinline__ Tests diag_tests(
   return t;
 }
 
+// K4: the reference's cast of a raw int16 band, one rounding a step
+__device__ __forceinline__ float scale_band(int16_t x, float scale,
+                                            float offset) {
+  return __fmul_rn(scale, __fsub_rn(__int2float_rn(x), offset));
+}
+
+// K5: the 3-bit class index of a WTR-1 / WTR-2 value (0..4, ocean, fill)
+__device__ __forceinline__ int widx(int w) {
+  return w == kOcean ? 5 : w == kFill ? 6 : w;
+}
+
 // CLOUD (with its snow bit) + WTR-2 -> CLOUD, WTR, BWTR, CONF, BROWSE
 __device__ __forceinline__ void finish_pixel(
     int64_t i, int cloud, int wtr2, const WtrFlags& F,
@@ -235,12 +273,16 @@ __device__ __forceinline__ void finish_pixel(
   }
 }
 
-// K1 (Band = int16_t) and K3 (Band = float); with F.cover, pass A of K2
-template <typename Band>
+// K1 (Band = int16_t) and K3 (Band = float); K4 (Band = int16_t, kScaled:
+// raw bands cast per tile before K3's body); with F.cover, pass A of K2;
+// with F.minimal, K5's packed outputs. Each plane is a [B, H, W] stack
+// (K6), hw = H * W.
+template <typename Band, bool kScaled>
 __global__ void wtr_pixel_kernel(
     const Band* __restrict__ blue, const Band* __restrict__ green,
     const Band* __restrict__ red, const Band* __restrict__ nir,
     const Band* __restrict__ swir1, const Band* __restrict__ swir2,
+    const float* __restrict__ scales, const float* __restrict__ offsets,
     const uint8_t* __restrict__ fmask, const uint8_t* __restrict__ invalid,
     const uint8_t* __restrict__ ocean, const uint8_t* __restrict__ shadow,
     const uint8_t* __restrict__ landcover,
@@ -248,20 +290,37 @@ __global__ void wtr_pixel_kernel(
     uint8_t* __restrict__ wtr2_o, uint8_t* __restrict__ wtr_o,
     uint8_t* __restrict__ bwtr_o, uint8_t* __restrict__ conf_o,
     uint8_t* __restrict__ cloud_o, uint8_t* __restrict__ browse_o,
-    uint8_t* __restrict__ state_o, int64_t n, WtrParams P, WtrParamsF32 Q,
-    WtrFlags F) {
+    uint8_t* __restrict__ pa_o, uint8_t* __restrict__ pb_o,
+    uint8_t* __restrict__ state_o, int64_t n, int64_t hw, int batch,
+    WtrParams P, WtrParamsF32 Q, WtrFlags F) {
+  // K4: the batch's scales (sv[6 t + j]) and offsets (sv[6 B + 6 t + j])
+  extern __shared__ float sv[];
+  if (kScaled) {
+    for (int k = threadIdx.x; k < 6 * batch; k += blockDim.x) {
+      sv[k] = scales[k];
+      sv[6 * batch + k] = offsets[k];
+    }
+    __syncthreads();
+  }
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const Tests t = diag_tests(blue[i], green[i], red[i], nir[i], swir1[i],
-                               swir2[i], P, Q);
+    Tests t;
+    if constexpr (kScaled) {
+      const float* s = sv + 6 * (i / hw);
+      const float* o = s + 6 * batch;
+      t = diag_tests(scale_band(blue[i], s[0], o[0]),
+                     scale_band(green[i], s[1], o[1]),
+                     scale_band(red[i], s[2], o[2]),
+                     scale_band(nir[i], s[3], o[3]),
+                     scale_band(swir1[i], s[4], o[4]),
+                     scale_band(swir2[i], s[5], o[5]), P, Q);
+    } else {
+      t = diag_tests(blue[i], green[i], red[i], nir[i], swir1[i], swir2[i],
+                     P, Q);
+    }
     const int fm = fmask[i];
     const bool inv = invalid[i] != 0;
-
-    // DIAG pseudo-binary (fill -> 65535)
-    const int diag = inv ? 65535
-        : t.t1 + 10 * t.t2 + 100 * t.t3 + 1000 * t.t4 + 10000 * t.t5;
-    diag_o[i] = (uint16_t)diag;
 
     // WTR-1: closed-form popcount interpretation (wtr_kernel.py:54-66)
     const int pc = t.t1 + t.t2 + t.t3 + t.t4 + t.t5;
@@ -270,7 +329,16 @@ __global__ void wtr_pixel_kernel(
     if (t.t5 && pc == 1) wtr1 = 4;
     if (F.with_ocean && ocean[i] == 0) wtr1 = kOcean;
     if (inv) wtr1 = kFill;
-    wtr1_o[i] = (uint8_t)wtr1;
+
+    // DIAG: the 6-bit decimal for K5, else the pseudo-binary (fill ->
+    // 65535)
+    const int diag6 = inv ? kDiagFill6
+        : t.t1 | t.t2 << 1 | t.t3 << 2 | t.t4 << 3 | t.t5 << 4;
+    if (!F.minimal) {
+      diag_o[i] = (uint16_t)(inv ? 65535
+          : t.t1 + 10 * t.t2 + 100 * t.t3 + 1000 * t.t4 + 10000 * t.t5);
+      wtr1_o[i] = (uint8_t)wtr1;
+    }
 
     // preliminary CLOUD: shadow (and adjacent, in 'mask' mode) -> 1,
     // cloud -> +4
@@ -305,7 +373,8 @@ __global__ void wtr_pixel_kernel(
           || (lc >= 100 && lc < 200 && water);    // high-intensity developed
       if (demote) wtr2 = 0;
     }
-    wtr2_o[i] = (uint8_t)wtr2;
+    if (!F.minimal) wtr2_o[i] = (uint8_t)wtr2;
+    const int wtr_idx = widx(wtr1) << 2 | widx(wtr2) << 5;
 
     if (F.cover) {
       // the snow dilations need the neighbours: wtr_k2_kernel finishes
@@ -313,9 +382,20 @@ __global__ void wtr_pixel_kernel(
       state_o[i] = (uint8_t)(cloud | ((fm & 16) ? kStSnow : 0)
                              | (((fm & 4) && cloud == 0) ? kStAreas : 0)
                              | (water2 ? kStWater : 0));
+      if (F.minimal) {
+        pa_o[i] = (uint8_t)diag6;
+        pb_o[i] = (uint8_t)wtr_idx;
+      }
       continue;
     }
     if (fm & 16) cloud += 2;
+    if (F.minimal) {
+      // CLOUD's fill (255) is WTR-2's: only its four payload bits ship
+      const int cloudp = wtr2 == kFill ? 0 : cloud;
+      pa_o[i] = (uint8_t)(diag6 | (cloudp & 3) << 6);
+      pb_o[i] = (uint8_t)(((cloudp >> 2) & 3) | wtr_idx);
+      continue;
+    }
     finish_pixel(i, cloud, wtr2, F, cloud_o, wtr_o, bwtr_o, conf_o,
                  browse_o);
   }
@@ -340,14 +420,30 @@ __device__ __forceinline__ void dilate_step(
 }
 
 // K2 pass B: the 'cover' snow dilations (masking.py:178-204) on a
-// 32 x 32 tile, then CLOUD, WTR, BWTR, CONF and BROWSE of the tile
+// 32 x 32 tile of image blockIdx.z of the stack (K6), then CLOUD, WTR,
+// BWTR, CONF and BROWSE of the tile, or with F.minimal CLOUD's four bits
+// ORed into PACKED_A/B (K5)
 __global__ void __launch_bounds__(256) wtr_k2_kernel(
     const uint8_t* __restrict__ state, const uint8_t* __restrict__ wtr2_in,
     uint8_t* __restrict__ cloud_o, uint8_t* __restrict__ wtr_o,
     uint8_t* __restrict__ bwtr_o, uint8_t* __restrict__ conf_o,
-    uint8_t* __restrict__ browse_o, int height, int width, WtrFlags F) {
+    uint8_t* __restrict__ browse_o, uint8_t* __restrict__ pa,
+    uint8_t* __restrict__ pb, int height, int width, WtrFlags F) {
   __shared__ uint8_t st[kSpan][kSpan];
   __shared__ uint8_t buf[3][kSpan][kSpan];
+  const int64_t plane = (int64_t)blockIdx.z * height * width;
+  state += plane;
+  if (F.minimal) {
+    pa += plane;
+    pb += plane;
+  } else {
+    wtr2_in += plane;
+    cloud_o += plane;
+    wtr_o += plane;
+    bwtr_o += plane;
+    conf_o += plane;
+    if (F.compute_browse) browse_o += plane;
+  }
   const int y0 = blockIdx.y * kTile - kHalo;
   const int x0 = blockIdx.x * kTile - kHalo;
 
@@ -397,59 +493,93 @@ __global__ void __launch_bounds__(256) wtr_k2_kernel(
     const int sr = r + kHalo, sc = threadIdx.x + kHalo;
     const bool snowed = snow[sr][sc] && !buf[u][sr][sc];
     const int cloud = (st[sr][sc] & kStCloud) + (snowed ? 2 : 0);
+    if (F.minimal) {
+      const uint8_t b = pb[i];
+      const int cloudp = ((b >> 5) & 7) == 6 ? 0 : cloud;  // WTR-2 fill
+      pa[i] |= (uint8_t)((cloudp & 3) << 6);
+      pb[i] = (uint8_t)(b | ((cloudp >> 2) & 3));
+      continue;
+    }
     finish_pixel(i, cloud, wtr2_in[i], F, cloud_o, wtr_o, bwtr_o, conf_o,
                  browse_o);
   }
 }
 
-// Launch on `stream` (PyTorch's current stream); does not synchronise.
-// Each returns cudaGetLastError() after its launch: nonzero means the
-// launch was refused or an earlier asynchronous error is pending.
+// A launch runs on the calling thread's current device, and stream 0 is
+// that device's: refuse data that another device holds (the wrapper makes
+// the tensors' device current) rather than launch against foreign pointers.
+static int check_device(const void* p) {
+  cudaPointerAttributes attr;
+  cudaError_t e = cudaPointerGetAttributes(&attr, p);
+  if (e != cudaSuccess) return (int)e;
+  int current = -1;
+  e = cudaGetDevice(&current);
+  if (e != cudaSuccess) return (int)e;
+  return attr.device == current ? 0 : (int)cudaErrorInvalidDevice;
+}
+
+// Launch on `stream` (PyTorch's current stream of the current device);
+// does not synchronise. Each returns cudaGetLastError() after its launch:
+// nonzero means the launch was refused or an earlier asynchronous error is
+// pending.
+// band_kind: 0 int16 (K1), 1 float32 (K3), 2 raw int16 with the [batch, 6]
+// float32 scales and offsets (K4). Every plane is a [batch, hw] stack.
 extern "C" int wtr_pixel_launch(
-    int float_bands, const void* blue, const void* green, const void* red,
-    const void* nir, const void* swir1, const void* swir2, const void* fmask,
+    int band_kind, const void* blue, const void* green, const void* red,
+    const void* nir, const void* swir1, const void* swir2,
+    const void* scales, const void* offsets, const void* fmask,
     const void* invalid, const void* ocean, const void* shadow,
     const void* landcover, void* diag, void* wtr1, void* wtr2, void* wtr,
-    void* bwtr, void* conf, void* cloud, void* browse, void* state,
-    int64_t n, const WtrParams* params, const WtrParamsF32* params_f32,
+    void* bwtr, void* conf, void* cloud, void* browse, void* packed_a,
+    void* packed_b, void* state, int batch, int64_t hw,
+    const WtrParams* params, const WtrParamsF32* params_f32,
     const WtrFlags* flags, void* stream) {
+  if (batch < 1 || batch > kMaxBatch || hw < 1)
+    return (int)cudaErrorInvalidValue;
+  if (const int err = check_device(blue)) return err;
+  const int64_t n = batch * hw;
   const int threads = 256;
   int64_t blocks = (n + threads - 1) / threads;
   if (blocks > (1 << 20)) blocks = 1 << 20;  // the loop covers the rest
-  if (blocks < 1) blocks = 1;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (float_bands) {
-    wtr_pixel_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
-        (const float*)blue, (const float*)green, (const float*)red,
-        (const float*)nir, (const float*)swir1, (const float*)swir2,
-        (const uint8_t*)fmask, (const uint8_t*)invalid, (const uint8_t*)ocean,
-        (const uint8_t*)shadow, (const uint8_t*)landcover, (uint16_t*)diag,
-        (uint8_t*)wtr1, (uint8_t*)wtr2, (uint8_t*)wtr, (uint8_t*)bwtr,
-        (uint8_t*)conf, (uint8_t*)cloud, (uint8_t*)browse, (uint8_t*)state,
-        n, *params, *params_f32, *flags);
+#define WTR_PIXEL_ARGS(T)                                                   \
+  (const T*)blue, (const T*)green, (const T*)red, (const T*)nir,            \
+      (const T*)swir1, (const T*)swir2, (const float*)scales,               \
+      (const float*)offsets, (const uint8_t*)fmask,                         \
+      (const uint8_t*)invalid, (const uint8_t*)ocean,                       \
+      (const uint8_t*)shadow, (const uint8_t*)landcover, (uint16_t*)diag,   \
+      (uint8_t*)wtr1, (uint8_t*)wtr2, (uint8_t*)wtr, (uint8_t*)bwtr,        \
+      (uint8_t*)conf, (uint8_t*)cloud, (uint8_t*)browse,                    \
+      (uint8_t*)packed_a, (uint8_t*)packed_b, (uint8_t*)state, n, hw,       \
+      batch, *params, *params_f32, *flags
+  if (band_kind == 1) {
+    wtr_pixel_kernel<float, false><<<(unsigned)blocks, threads, 0, s>>>(
+        WTR_PIXEL_ARGS(float));
+  } else if (band_kind == 2) {
+    const size_t smem = 12 * sizeof(float) * (size_t)batch;
+    wtr_pixel_kernel<int16_t, true><<<(unsigned)blocks, threads, smem, s>>>(
+        WTR_PIXEL_ARGS(int16_t));
   } else {
-    wtr_pixel_kernel<int16_t><<<(unsigned)blocks, threads, 0, s>>>(
-        (const int16_t*)blue, (const int16_t*)green, (const int16_t*)red,
-        (const int16_t*)nir, (const int16_t*)swir1, (const int16_t*)swir2,
-        (const uint8_t*)fmask, (const uint8_t*)invalid, (const uint8_t*)ocean,
-        (const uint8_t*)shadow, (const uint8_t*)landcover, (uint16_t*)diag,
-        (uint8_t*)wtr1, (uint8_t*)wtr2, (uint8_t*)wtr, (uint8_t*)bwtr,
-        (uint8_t*)conf, (uint8_t*)cloud, (uint8_t*)browse, (uint8_t*)state,
-        n, *params, *params_f32, *flags);
+    wtr_pixel_kernel<int16_t, false><<<(unsigned)blocks, threads, 0, s>>>(
+        WTR_PIXEL_ARGS(int16_t));
   }
+#undef WTR_PIXEL_ARGS
   return (int)cudaGetLastError();
 }
 
 extern "C" int wtr_k2_launch(
     const void* state, const void* wtr2, void* cloud, void* wtr, void* bwtr,
-    void* conf, void* browse, int height, int width, const WtrFlags* flags,
-    void* stream) {
+    void* conf, void* browse, void* packed_a, void* packed_b, int batch,
+    int height, int width, const WtrFlags* flags, void* stream) {
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (const int err = check_device(state)) return err;
   const dim3 threads(kTile, 8);
-  const dim3 blocks((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
+  const dim3 blocks((width + kTile - 1) / kTile,
+                    (height + kTile - 1) / kTile, batch);
   wtr_k2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)state, (const uint8_t*)wtr2, (uint8_t*)cloud,
       (uint8_t*)wtr, (uint8_t*)bwtr, (uint8_t*)conf, (uint8_t*)browse,
-      height, width, *flags);
+      (uint8_t*)packed_a, (uint8_t*)packed_b, height, width, *flags);
   return (int)cudaGetLastError();
 }
 

@@ -1,20 +1,31 @@
-"""The fused per-pixel DSWx-HLS chain: CUDA kernels K1, K2, K3 and their
-plain twin.
+"""The fused per-pixel DSWx-HLS chain: CUDA kernels K1 to K6 and their
+plain twins.
 
-``wtr_layers`` computes DIAG, WTR-1, WTR-2, WTR, BWTR, CONF, CLOUD and
-(optionally) BROWSE. It replaces the Pallas TPU kernel
-``proteus_tpu/ops/pallas/wtr_kernel.py::make_wtr_kernel`` with full outputs
-(the source is ``csrc/wtr_kernel.cu``):
+It replaces the Pallas TPU kernel
+``proteus_tpu/ops/pallas/wtr_kernel.py::make_wtr_kernel`` (the source is
+``csrc/wtr_kernel.cu``). ``wtr_layers`` computes one tile's DIAG, WTR-1,
+WTR-2, WTR, BWTR, CONF, CLOUD and (optionally) BROWSE:
 
 - K1: int16 bands, 'mask'/'ignore', one per-pixel pass;
 - K3: float32 (offset-and-scaled) bands, one per-pixel pass;
 - K2: 'cover' mode, K1's or K3's pass up to WTR-2 followed by the tiled
   halo pass of the two masked snow dilations.
 
+``wtr_layers_batched`` runs a [B, H, W] stack of tiles, the campaign's
+step, with the other three slices:
+
+- K4: raw int16 bands with per-tile scales and offsets; the reference's
+  cast ``scale * (float32(band) - offset)`` runs inside the kernel before
+  K3's body;
+- K5: minimal outputs, DIAG6, CLOUD, WTR-1 and WTR-2 packed into the two
+  planes PACKED_A and PACKED_B (2 B/px; ``pack_minimal``);
+- K6: one launch for the whole stack (and one for K2's pass).
+
 Dispatch follows the tensors' device and nothing else: CUDA tensors launch
-the kernels (or raise), CPU tensors run ``wtr_layers_plain``, the plain
-PyTorch chain of ``proteus_tpu_torch.models.dswx.chain``. There is no
-fallback from a kernel to the plain chain.
+the kernels (or raise), CPU tensors run ``wtr_layers_plain`` or
+``wtr_layers_batched_plain``, built on the plain PyTorch chain of
+``proteus_tpu_torch.models.dswx.chain``. There is no fallback from a kernel
+to the plain chain.
 """
 
 import ctypes
@@ -22,17 +33,21 @@ import functools
 
 import torch
 
-from proteus_tpu_torch.host import ExactThresholds
+from proteus_tpu_torch.core import constants as C
+from proteus_tpu_torch.core.thresholds import ExactThresholds
 from proteus_tpu_torch.models.dswx.chain import dswx_chain
 from proteus_tpu_torch.models.dswx.diagnostics import exact_pq, f32
 from proteus_tpu_torch.models.dswx.masking import lcmask_nir_pq
 
 # launches of each kernel slice since the counts were last reset (set a
 # count to 0 to reset it)
-LAUNCHES = {'wtr_k1': 0, 'wtr_k2': 0, 'wtr_k3': 0}
+LAUNCHES = {f'wtr_k{k}': 0 for k in range(1, 7)}
 
 LAYERS = ('DIAG', 'WTR-1', 'WTR-2', 'WTR', 'BWTR', 'CONF', 'CLOUD')
+PACKED = ('PACKED_A', 'PACKED_B')
 MODES = ('mask', 'ignore', 'cover')
+BANDS = ('blue', 'green', 'red', 'nir', 'swir1', 'swir2')
+MAX_SCALED_BATCH = 1024  # K4 stages 48 B a tile in 48 KB of shared memory
 
 _PQ_FIELDS = ('wigt', 'awgt', 'pswt_1_mndwi', 'pswt_1_swir1', 'pswt_1_nir',
               'pswt_1_ndvi', 'pswt_2_mndwi', 'pswt_2_blue', 'pswt_2_nir',
@@ -59,7 +74,8 @@ class WtrFlags(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int32) for name in (
         'with_ocean', 'with_shadow', 'with_landcover', 'compute_browse',
         'mask_adjacent', 'apply_aerosol', 'cover', 'exclude_psw_aggressive',
-        'collapse', 'not_water_nodata', 'cloud_nodata', 'snow_nodata')]
+        'collapse', 'not_water_nodata', 'cloud_nodata', 'snow_nodata',
+        'minimal')]
 
 
 @functools.lru_cache(maxsize=16)
@@ -88,24 +104,67 @@ def kernel_params(config, float_bands=False):
 
 
 def kernel_flags(config, with_ocean, with_shadow, with_landcover,
-                 compute_browse):
+                 compute_browse, minimal=False):
     mode = config.mask_adjacent_to_cloud_mode
     return WtrFlags(
         int(with_ocean), int(with_shadow), int(with_landcover),
-        int(compute_browse), int(mode == 'mask'),
+        int(compute_browse and not minimal), int(mode == 'mask'),
         int(config.apply_aerosol_class_remapping), int(mode == 'cover'),
         int(config.exclude_psw_aggressive_in_browse),
         int(config.flag_collapse_wtr_classes),
         int(config.not_water_in_browse == 'nodata'),
         int(config.cloud_in_browse == 'nodata'),
-        int(config.snow_in_browse == 'nodata'))
+        int(config.snow_in_browse == 'nodata'), int(minimal))
 
 
-def kernel_slices(float_bands, mode):
-    """The kernel slices a CUDA call launches for int16 or float32
-    (``float_bands``) bands in this mode."""
-    first = 'wtr_k3' if float_bands else 'wtr_k1'
-    return (first, 'wtr_k2') if mode == 'cover' else (first,)
+def kernel_slices(float_bands, mode, device_scale=False, minimal=False,
+                  batched=False):
+    """The kernel slices a CUDA call launches: float32 (``float_bands``) or
+    int16 bands, the mode, and for ``wtr_layers_batched`` (``batched``)
+    the device scale and the minimal outputs."""
+    slices = ['wtr_k3' if float_bands or device_scale else 'wtr_k1']
+    if mode == 'cover':
+        slices.append('wtr_k2')
+    if device_scale:
+        slices.append('wtr_k4')
+    if minimal:
+        slices.append('wtr_k5')
+    if batched:
+        slices.append('wtr_k6')
+    return tuple(slices)
+
+
+def _diag6(diag):
+    """The DIAG pseudo-binary (uint16) as its 6-bit decimal (fill 65535 ->
+    32), the field of PACKED_A."""
+    d = diag.to(torch.int32)
+    bits = sum(((d // 10 ** k) % 10) << k for k in range(5))
+    return torch.where(d == 65535, C.DIAGNOSTIC_LAYER_NO_DATA_DECIMAL, bits)
+
+
+def pack_minimal(out):
+    """The plain twin of K5's epilogue (``proteus_tpu/parallel/
+    campaign.py::_pack_minimal_device``): a chain's DIAG, CLOUD, WTR-1 and
+    WTR-2 packed into two uint8 planes, 2 B/px,
+
+        PACKED_A = diag6 | (cloud & 3) << 6
+        PACKED_B = (cloud >> 2) & 3 | widx(WTR-1) << 2 | widx(WTR-2) << 5
+
+    with CLOUD 0 where it is fill (its fill is WTR-2's) and the class index
+    widx 0..4, 5 for ocean, 6 for fill. The inverse is
+    ``models.dswx.host_derive.unpack_minimal``."""
+    cloud = out['CLOUD'].to(torch.int32)
+    cloud = torch.where(cloud == C.UINT8_FILL_VALUE, 0, cloud)
+
+    def idx(w):
+        w = w.to(torch.int32)
+        return torch.where(w == C.WTR_OCEAN_MASKED, 5,
+                           torch.where(w == C.UINT8_FILL_VALUE, 6, w))
+
+    pa = _diag6(out['DIAG']) | ((cloud & 3) << 6)
+    pb = ((cloud >> 2) & 3) | (idx(out['WTR-1']) << 2) \
+        | (idx(out['WTR-2']) << 5)
+    return {'PACKED_A': pa.to(torch.uint8), 'PACKED_B': pb.to(torch.uint8)}
 
 
 def wtr_layers_plain(blue, green, red, nir, swir1, swir2, fmask, invalid,
@@ -118,11 +177,37 @@ def wtr_layers_plain(blue, green, red, nir, swir1, swir2, fmask, invalid,
                       compute_browse=compute_browse, compute_stats=False)
 
 
+def wtr_layers_batched_plain(blue, green, red, nir, swir1, swir2, fmask,
+                             invalid, config, scales=None, offsets=None,
+                             ocean=None, shadow=None, landcover=None,
+                             compute_browse=True, minimal=False):
+    """``wtr_layers_batched`` from the plain PyTorch chain (any device):
+    per tile, the cast ``scales[j] * (band.float() - offsets[j])`` in
+    float32 tensors (with ``scales``), then ``dswx_chain``, then
+    ``pack_minimal`` (with ``minimal``); the layers stacked."""
+    bands = (blue, green, red, nir, swir1, swir2)
+    tiles = []
+    for k in range(blue.shape[0]):
+        tile = [b[k] for b in bands]
+        if scales is not None:
+            tile = [scales[k, j] * (b.to(torch.float32) - offsets[k, j])
+                    for j, b in enumerate(tile)]
+        out = wtr_layers_plain(
+            *tile, fmask[k], invalid[k], config,
+            *[None if a is None else a[k] for a in (ocean, shadow,
+                                                    landcover)],
+            compute_browse=compute_browse and not minimal)
+        tiles.append(pack_minimal(out) if minimal else out)
+    return {name: torch.stack([t[name] for t in tiles])
+            for name in tiles[0]}
+
+
 def wtr_layers(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
                ocean=None, shadow=None, landcover=None, compute_browse=True):
     """DIAG (uint16) and WTR-1, WTR-2, WTR, BWTR, CONF, CLOUD, BROWSE
-    (uint8) as a dict; the CUDA kernels for CUDA tensors, the plain chain
-    for CPU tensors. Bands are all int16 or all float32."""
+    (uint8) of one (H, W) tile as a dict; the CUDA kernels for CUDA
+    tensors, the plain chain for CPU tensors. Bands are all int16 or all
+    float32."""
     device = blue.device
     if device.type == 'cpu':
         return wtr_layers_plain(blue, green, red, nir, swir1, swir2, fmask,
@@ -130,11 +215,54 @@ def wtr_layers(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
                                 compute_browse)
     if device.type != 'cuda':
         raise ValueError(f'wtr_layers: unsupported device {device}')
-    out, state, flags = pixel_pass(blue, green, red, nir, swir1, swir2,
-                                   fmask, invalid, config, ocean, shadow,
-                                   landcover, compute_browse)
+    if blue.dim() != 2:
+        raise ValueError(f'wtr_layers: bands must be (H, W), got '
+                         f'{tuple(blue.shape)}')
+
+    def one(t):
+        return None if t is None else t.unsqueeze(0)
+    out = _launch([one(b) for b in (blue, green, red, nir, swir1, swir2)],
+                  one(fmask), one(invalid), config, None, None, one(ocean),
+                  one(shadow), one(landcover), compute_browse, False,
+                  batched=False)
+    return {name: t[0] for name, t in out.items()}
+
+
+def wtr_layers_batched(blue, green, red, nir, swir1, swir2, fmask, invalid,
+                       config, scales=None, offsets=None, ocean=None,
+                       shadow=None, landcover=None, compute_browse=True,
+                       minimal=False):
+    """The layers of a [B, H, W] stack of tiles in one launch (K6): full
+    outputs as ``wtr_layers`` gives them, stacked, or with ``minimal``
+    PACKED_A and PACKED_B (K5). Bands are all int16 or all float32; with
+    ``scales`` and ``offsets`` ([B, 6] float32, one row a tile, bands in
+    the order blue, green, red, nir, swir1, swir2) they are raw int16 and
+    the float32 chain runs on ``scales * (float32(band) - offsets)`` (K4).
+    CUDA tensors launch the kernels, CPU tensors run
+    ``wtr_layers_batched_plain``."""
+    device = blue.device
+    if device.type == 'cpu':
+        return wtr_layers_batched_plain(
+            blue, green, red, nir, swir1, swir2, fmask, invalid, config,
+            scales, offsets, ocean, shadow, landcover, compute_browse,
+            minimal)
+    if device.type != 'cuda':
+        raise ValueError(f'wtr_layers_batched: unsupported device {device}')
+    if blue.dim() != 3:
+        raise ValueError(f'wtr_layers_batched: bands must be (B, H, W), '
+                         f'got {tuple(blue.shape)}')
+    return _launch([blue, green, red, nir, swir1, swir2], fmask, invalid,
+                   config, scales, offsets, ocean, shadow, landcover,
+                   compute_browse, minimal, batched=True)
+
+
+def _launch(bands, fmask, invalid, config, scales, offsets, ocean, shadow,
+            landcover, compute_browse, minimal, batched):
+    out, state, flags, slices = pixel_pass(
+        *bands, fmask, invalid, config, scales, offsets, ocean, shadow,
+        landcover, compute_browse, minimal, batched)
     if state is not None:
-        launch_k2(state, out, flags)
+        launch_k2(state, out, flags, slices)
     return out
 
 
@@ -155,11 +283,11 @@ def _bind(lib):
     if lib.wtr_pixel_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wtr_pixel_launch.argtypes = (
-            [i] + [p] * 20 + [ctypes.c_int64, ctypes.POINTER(WtrParams),
+            [i] + [p] * 24 + [i, ctypes.c_int64, ctypes.POINTER(WtrParams),
                               ctypes.POINTER(WtrParamsF32),
                               ctypes.POINTER(WtrFlags), p])
         lib.wtr_pixel_launch.restype = i
-        lib.wtr_k2_launch.argtypes = [p] * 7 + [i, i,
+        lib.wtr_k2_launch.argtypes = [p] * 9 + [i, i, i,
                                                 ctypes.POINTER(WtrFlags), p]
         lib.wtr_k2_launch.restype = i
         lib.wtr_error_string.argtypes = [i]
@@ -177,12 +305,21 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _count(slices):
+    for name in slices:
+        LAUNCHES[name] += 1
+
+
 def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
-               ocean=None, shadow=None, landcover=None, compute_browse=True):
-    """Launch the per-pixel kernel on CUDA tensors: K1 or K3, or in
-    'cover' mode pass A of K2. Returns the layers, the 'cover' state bytes
-    (None in the other modes; ``launch_k2`` finishes the layers from them)
-    and the launch flags."""
+               scales=None, offsets=None, ocean=None, shadow=None,
+               landcover=None, compute_browse=True, minimal=False,
+               batched=True):
+    """Launch the per-pixel kernel on a [B, H, W] stack of CUDA tensors:
+    K1, K3 or K4, with K5's packed outputs if ``minimal``, or in 'cover'
+    mode pass A of K2. Returns the layers, the 'cover' state bytes (None
+    in the other modes; ``launch_k2`` finishes the layers from them), the
+    launch flags and the slices of the call (``kernel_slices``; K6 with
+    ``batched``)."""
     from proteus_tpu_torch.ops.build import build
 
     mode = config.mask_adjacent_to_cloud_mode
@@ -191,58 +328,81 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
                          f' {mode}')
     device = blue.device
     shape = tuple(blue.shape)
-    if len(shape) != 2:
-        raise ValueError(f'wtr_layers: bands must be (H, W), got {shape}')
-    if blue.dtype not in (torch.int16, torch.float32):
-        raise ValueError(f'wtr_layers: bands must be int16 or float32, '
+    if len(shape) != 3:
+        raise ValueError(f'wtr_layers: bands must be (B, H, W), got {shape}')
+    batch = shape[0]
+    device_scale = scales is not None
+    band_dtypes = (torch.int16,) if device_scale \
+        else (torch.int16, torch.float32)
+    if blue.dtype not in band_dtypes:
+        raise ValueError(f'wtr_layers: bands must be one of {band_dtypes}, '
                          f'not {blue.dtype}')
-    bands = (blue, green, red, nir, swir1, swir2)
-    for name, t in zip(('blue', 'green', 'red', 'nir', 'swir1', 'swir2'),
-                       bands):
+    for name, t in zip(BANDS, (blue, green, red, nir, swir1, swir2)):
         _check(name, t, (blue.dtype,), shape, device)
     _check('fmask', fmask, (torch.uint8,), shape, device)
     _check('invalid', invalid, (torch.bool, torch.uint8), shape, device)
+    if device_scale:
+        if batch > MAX_SCALED_BATCH:
+            raise ValueError(f'wtr_layers: device scale takes at most '
+                             f'{MAX_SCALED_BATCH} tiles a launch, not '
+                             f'{batch}')
+        for name, t in (('scales', scales), ('offsets', offsets)):
+            _check(name, t, (torch.float32,), (batch, 6), device)
     extras = {'ocean': ocean, 'shadow': shadow, 'landcover': landcover}
     for name, t in extras.items():
         if t is not None:
             _check(name, t, (torch.uint8,), shape, device)
-    float_bands = blue.dtype == torch.float32
+    float_bands = blue.dtype == torch.float32 or device_scale
     params, params_f32 = kernel_params(config, float_bands)
     flags = kernel_flags(config, ocean is not None, shadow is not None,
-                         landcover is not None, compute_browse)
+                         landcover is not None, compute_browse, minimal)
 
-    out = {'DIAG': torch.empty(shape, dtype=torch.uint16, device=device)}
-    names = LAYERS[1:] + (('BROWSE',) if compute_browse else ())
-    for name in names:
-        out[name] = torch.empty(shape, dtype=torch.uint8, device=device)
-    state = torch.empty(shape, dtype=torch.uint8, device=device) \
-        if mode == 'cover' else None
+    def plane(dtype=torch.uint8):
+        return torch.empty(shape, dtype=dtype, device=device)
+    if minimal:
+        out = {name: plane() for name in PACKED}
+    else:
+        out = {'DIAG': plane(torch.uint16)}
+        names = LAYERS[1:] + (('BROWSE',) if compute_browse else ())
+        out.update({name: plane() for name in names})
+    state = plane() if mode == 'cover' else None
 
     lib = _bind(build('wtr_kernel').lib)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    first = kernel_slices(float_bands, mode)[0]
-    err = lib.wtr_pixel_launch(
-        int(float_bands), *[_ptr(t) for t in bands], _ptr(fmask),
-        _ptr(invalid), _ptr(ocean), _ptr(shadow), _ptr(landcover),
-        *[_ptr(out[k]) for k in LAYERS], _ptr(out.get('BROWSE')),
-        _ptr(state), blue.numel(), ctypes.byref(params),
-        ctypes.byref(params_f32), ctypes.byref(flags), stream)
-    _raise_on(lib, err, f'{first} launch')
-    LAUNCHES[first] += 1
-    return out, state, flags
+    slices = kernel_slices(float_bands, mode, device_scale, minimal,
+                           batched)
+    band_kind = 2 if device_scale else int(float_bands)
+    # the launch goes to the current device and the stream handle is that
+    # device's: make the tensors' device current (a campaign spreads its
+    # batch over every visible card)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wtr_pixel_launch(
+            band_kind,
+            *[_ptr(t) for t in (blue, green, red, nir, swir1, swir2)],
+            _ptr(scales), _ptr(offsets), _ptr(fmask), _ptr(invalid),
+            _ptr(ocean), _ptr(shadow), _ptr(landcover),
+            *[_ptr(out.get(k)) for k in LAYERS + ('BROWSE',) + PACKED],
+            _ptr(state), batch, shape[1] * shape[2], ctypes.byref(params),
+            ctypes.byref(params_f32), ctypes.byref(flags), stream)
+    _raise_on(lib, err, f'{"+".join(slices)} launch')
+    _count(s for s in slices if s != 'wtr_k2')
+    return out, state, flags, slices
 
 
-def launch_k2(state, out, flags):
-    """Pass B of 'cover' mode (kernel K2): from the per-pixel pass's state
-    bytes and WTR-2, write CLOUD, WTR, BWTR, CONF and BROWSE into ``out``
-    (CUDA tensors)."""
+def launch_k2(state, out, flags, slices=('wtr_k2',)):
+    """Pass B of 'cover' mode (kernel K2) on a [B, H, W] stack: from the
+    per-pixel pass's state bytes and WTR-2, write CLOUD, WTR, BWTR, CONF
+    and BROWSE into ``out`` (CUDA tensors), or with the minimal flag OR
+    CLOUD into PACKED_A/B. Counts one launch of each of ``slices`` but
+    K1, K3 and K4 (pass A's)."""
     from proteus_tpu_torch.ops.build import build
     lib = _bind(build('wtr_kernel').lib)
-    height, width = state.shape
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    err = lib.wtr_k2_launch(
-        _ptr(state), _ptr(out['WTR-2']), _ptr(out['CLOUD']),
-        _ptr(out['WTR']), _ptr(out['BWTR']), _ptr(out['CONF']),
-        _ptr(out.get('BROWSE')), height, width, ctypes.byref(flags), stream)
+    batch, height, width = state.shape
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = lib.wtr_k2_launch(
+            _ptr(state), *[_ptr(out.get(k)) for k in (
+                'WTR-2', 'CLOUD', 'WTR', 'BWTR', 'CONF', 'BROWSE') + PACKED],
+            batch, height, width, ctypes.byref(flags), stream)
     _raise_on(lib, err, 'wtr_k2 launch')
-    LAUNCHES['wtr_k2'] += 1
+    _count(s for s in slices if s not in ('wtr_k1', 'wtr_k3', 'wtr_k4'))

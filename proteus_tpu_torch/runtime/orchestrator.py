@@ -4,10 +4,11 @@ Port of ``proteus_tpu/runtime/orchestrator.py:70-664``:
 ``generate_dswx_layers`` keeps the keyword surface of the reference
 orchestrator (dswx_hls.py:4610-5417), its stage order and its log lines,
 and adds ``device=``. Ingest, coverage checks, shoreline rasterization,
-reprojection planning and the product writer run on the host (the
-``proteus_tpu`` host modules); the ocean mask's seaward buffer, the DEM
-and landcover warps, the terrain shadow, LAND and the per-pixel chain run
-on ``device``. On a CUDA device the per-pixel chain is the fused CUDA kernels
+reprojection planning and the product writer run on the host (the port's
+copies of the JAX package's host modules); the ocean mask's seaward
+buffer, the DEM and landcover warps, the terrain shadow, LAND and the
+per-pixel chain run on ``device``. On a CUDA device the per-pixel chain is
+the fused CUDA kernels
 (K1 or K3, and K2 in 'cover' mode), on the CPU the plain PyTorch chain;
 all layers come back to the host once, after the chain.
 
@@ -23,17 +24,17 @@ import time
 import numpy as np
 import torch
 
-from proteus_tpu_torch.core.unported import (OTSU_SHADOW, RAW_S2_RESAMPLE,
-                                             not_ported)
+from proteus_tpu_torch.config.runconfig import parse_runconfig_file
+from proteus_tpu_torch.core import constants as C
+from proteus_tpu_torch.core.thresholds import HlsThresholds
+from proteus_tpu_torch.core.unported import OTSU_SHADOW, not_ported
 from proteus_tpu_torch.device import synchronize
+from proteus_tpu_torch.geo.coverage import check_ancillary_inputs
 from proteus_tpu_torch.geo.polygon import create_ocean_mask
-from proteus_tpu_torch.geo.warp import warp_to_grid_device
-from proteus_tpu_torch.host import (HlsThresholds, StageTimers, TiffReader,
-                                    VERSION as SOFTWARE_VERSION, build_vrt,
-                                    check_ancillary_inputs, constants as C,
-                                    ctables, geotiff2png, hls_io,
-                                    metadata as md_util, parse_runconfig_file,
-                                    product_writer as pw, worldcover_year_of)
+from proteus_tpu_torch.geo.warp import warp_to_grid_device, worldcover_year_of
+from proteus_tpu_torch.io import hls as hls_io
+from proteus_tpu_torch.io.png import geotiff2png
+from proteus_tpu_torch.io.vrt import build_vrt
 from proteus_tpu_torch.models.dswx import masking
 from proteus_tpu_torch.models.dswx.chain import (DswxChainConfig,
                                                  coverage_counts)
@@ -42,6 +43,11 @@ from proteus_tpu_torch.models.dswx.landcover import \
 from proteus_tpu_torch.models.dswx.shadow import \
     compute_opera_shadow_layer_exact
 from proteus_tpu_torch.ops.wtr_kernel import kernel_slices, wtr_layers
+from proteus_tpu_torch.runtime import ctables
+from proteus_tpu_torch.runtime import metadata as md_util
+from proteus_tpu_torch.runtime import product_writer as pw
+from proteus_tpu_torch.runtime.profiling import StageTimers
+from proteus_tpu_torch.version import VERSION as SOFTWARE_VERSION
 
 logger = logging.getLogger('dswx_hls')
 
@@ -55,20 +61,6 @@ def _mean_angle(meta_value):
 
 def _crop_margin(arr, margin):
     return arr[margin:-margin, margin:-margin]
-
-
-def _check_30m_inputs(input_list):
-    """Raise for 10 m / 20 m GeoTIFF bands: their ingest resamples through
-    ``proteus_tpu.ops.resample.resample_to_30m``, which is JAX code."""
-    files = input_list if isinstance(input_list, list) else [input_list]
-    for f in files:
-        if not str(f).lower().endswith(('.tif', '.tiff')) \
-                or not os.path.isfile(f):
-            continue
-        with TiffReader(f) as r:
-            gt = r.geotransform()
-        if gt is not None and abs(gt[1]) in (10.0, 20.0):
-            raise not_ported(RAW_S2_RESAMPLE)
 
 
 def generate_dswx_layers(input_list,
@@ -188,7 +180,6 @@ def generate_dswx_layers(input_list,
     # ---- paths not ported yet (ROADMAP.md) --------------------------------
     if dem_file is not None and p['shadow_masking_algorithm'] == 'otsu':
         raise not_ported(OTSU_SHADOW)
-    _check_30m_inputs(input_list)
 
     # ---- parameter logging (reference dswx_hls.py:4864-4956) --------------
     ocean_unused = '' if p['apply_ocean_masking'] else ' (unused)'
@@ -341,8 +332,8 @@ def generate_dswx_layers(input_list,
         with timers.stage('ocean mask'):
             ocean_mask = create_ocean_mask(
                 shoreline_shapefile,
-                p['ocean_masking_shoreline_distance_km'], geotransform,
-                projection, length, width, device)
+                p['ocean_masking_shoreline_distance_km'], scratch_dir,
+                geotransform, projection, length, width, device=device)
             synchronize(device)
 
     # ---- DEM warp + terrain shadow (device) ---------------------------------

@@ -25,6 +25,9 @@ setup(
                                     'proteus_tpu_torch.*']),
     package_data={'proteus_tpu.config': ['defaults/*.yaml',
                                          'schemas/*.yaml'],
+                  'proteus_tpu_torch.config': ['defaults/*.yaml',
+                                               'schemas/*.yaml'],
+                  'proteus_tpu_torch.native': ['tiffturbo.cpp'],
                   'proteus_tpu_torch.ops': ['csrc/*.cu']},
     python_requires='>=3.9',
     install_requires=['numpy', 'scipy', 'jax', 'pyyaml', 'pillow'],

@@ -280,15 +280,20 @@ def test_kernel_plain_matches_pallas_interpret(mode, with_ancillaries,
 
 def test_cpu_tensors_never_launch_the_kernel():
     before = dict(wtr_kernel.LAUNCHES)
-    assert sorted(before) == ['wtr_k1', 'wtr_k2', 'wtr_k3']
+    assert sorted(before) == [f'wtr_k{k}' for k in range(1, 7)]
     for bands, mode in itertools.product(
             (INPUTS['bands'], [b.astype(np.float32) * np.float32(1e-4)
                                for b in INPUTS['bands']]),
             ('mask', 'cover')):
+        cfg = tchain.DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
         out = wtr_kernel.wtr_layers(
             *[T(b) for b in bands], T(INPUTS['fmask']), T(INPUTS['invalid']),
-            tchain.DswxChainConfig(mask_adjacent_to_cloud_mode=mode))
+            cfg)
         assert sorted(out) == sorted(LAYERS + ('BROWSE',))
+        out = wtr_kernel.wtr_layers_batched(
+            *[T(b[None]) for b in bands], T(INPUTS['fmask'][None]),
+            T(INPUTS['invalid'][None]), cfg, minimal=True)
+        assert sorted(out) == ['PACKED_A', 'PACKED_B']
     assert wtr_kernel.LAUNCHES == before
 
 
@@ -330,6 +335,7 @@ def test_kernel_params_layout():
     flags = wtr_kernel.kernel_flags(
         tchain.DswxChainConfig(mask_adjacent_to_cloud_mode='cover'),
         True, False, True, True)
-    assert ctypes.sizeof(flags) == 12 * 4
+    assert ctypes.sizeof(flags) == 13 * 4
+    assert flags.minimal == 0
     assert (flags.cover, flags.mask_adjacent, flags.with_ocean,
             flags.with_shadow) == (1, 0, 1, 0)

@@ -100,8 +100,8 @@ def test_ocean_mask_matches_host(tmp_path, size, margin_km):
     proj = CRS.from_epsg(synthetic.EPSG).to_wkt()
     want = jax_ocean_mask(shp, margin_km, str(tmp_path), gt, proj, size,
                           size)
-    got = create_ocean_mask(shp, margin_km, gt, proj, size, size,
-                            torch.device('cpu'))
+    got = create_ocean_mask(shp, margin_km, str(tmp_path), gt, proj, size,
+                            size, device=torch.device('cpu'))
     assert_same(got, want)
     assert 0.1 < 1 - want.mean() < 0.4
 

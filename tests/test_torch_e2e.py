@@ -1,8 +1,8 @@
 """The whole slice: proteus_tpu_torch.generate_dswx_layers against
 proteus_tpu's on the same synthetic tile (DEM, CGLS and WorldCover),
 product file by product file, tolerance 0; plus the guards of the port:
-it never imports jax, never picks a device on its own, and raises on the
-paths it does not run yet.
+it never imports jax or proteus_tpu, never picks a device on its own, and
+raises on the paths it does not run yet.
 """
 
 import os
@@ -154,7 +154,7 @@ names = [m.name for m in pkgutil.walk_packages(proteus_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
-import synthetic
+from proteus_tpu_torch.testing import synthetic
 from proteus_tpu_torch.cli.dswx_hls import main
 with tempfile.TemporaryDirectory() as root:
     synthetic.make_hls_v2_dataset(os.path.join(root, 'input'), size=64)
@@ -176,18 +176,21 @@ with tempfile.TemporaryDirectory() as root:
         extra_processing={'mask_adjacent_to_cloud_mode': 'cover',
                           'ocean_masking_shoreline_distance_km': 0.3})
     assert main([rc, '--offset-and-scale-inputs']) is True
-    from proteus_tpu_torch.host import TiffReader
+    from proteus_tpu_torch.io.tiff import TiffReader
     out = os.path.join(root, 'out2', 'dswx_hls_test_v0.1_B01_WTR.tif')
     with TiffReader(out) as r:
         assert (r.read() == 254).any()
 sys.stdout = sys.__stdout__
+print('proteus_tpu loaded:', sorted(m for m in sys.modules
+                                    if m.split('.')[0] == 'proteus_tpu'))
 print('jax loaded:', 'jax' in sys.modules)
 '''
 
 
 def test_port_never_imports_jax():
     """Import every module of the port and run the slice through its CLI
-    in a fresh interpreter (tests/conftest.py imports jax in this one)."""
+    in a fresh interpreter (tests/conftest.py imports jax in this one):
+    neither jax nor any module of proteus_tpu is loaded."""
     env = dict(os.environ, PROTEUS_TPU_TORCH_DEVICE='cpu',
                PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO,
                                                               'tests')]))
@@ -195,4 +198,5 @@ def test_port_never_imports_jax():
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    assert proc.stdout.strip().splitlines()[-1] == 'jax loaded: False'
+    assert proc.stdout.strip().splitlines()[-2:] == [
+        'proteus_tpu loaded: []', 'jax loaded: False']
