@@ -22,7 +22,12 @@ Phases, each printed on its own line; any failure exits nonzero:
    and offsets that differ between the tiles of a batch, and raw int16
    pairs whose scaled ratios land within 2 ULPs of each ratio threshold.
    Then each kernel and its plain version timed with CUDA events, K4+K5+K6
-   at B = 1 and B = 4;
+   at B = 1 and B = 4. K6 spatial (phase 3c): B = 2 stacks cut into 4 row
+   shards of 915 rows (with the 17-row halo in 'cover'), each windowed
+   launch against the plain twin on its padded block, cropped, and the
+   joined shards against the unsharded K6 launch, in every band kind x
+   mode x ancillaries x browse; the 4 windowed launches timed against the
+   one unsharded launch;
 4. main path: a full-size synthetic HLS tile (3660^2 bands, DEM with its
    50 px margin, 3x WorldCover grid) through
    ``python -m proteus_tpu_torch.cli.dswx_hls``'s ``main`` on ``cuda``
@@ -40,12 +45,18 @@ Phases, each printed on its own line; any failure exits nonzero:
    'cover' with a shoreline on run (a)'s Fmask. Each run's launch counts
    start at 0 and must show its slices; tile A's files are held against
    phase 4's run of the same mode, tile B's science layers against the
-   numpy oracle. Then the campaign step alone at 1, 2, 4 and 8 tiles a
-   device;
+   numpy oracle. Phase 5c: (g) and (h), campaigns (f) and (e) again
+   through ``CampaignRunner`` with each tile's rows cut over a 1 x 4 mesh
+   of card 0 (``spatial_shards=4``, K6 spatial): their product files
+   byte-identical to (f)'s and (e)'s but for the processing time, their
+   totals equal to the reference's spatial rule computed on the host.
+   Then the campaign step alone at 1, 2, 4 and 8 tiles a device;
 6. multi-card (only when two or more cards are visible; skipped on one):
    the campaign CLI over every card against the same campaign on card 0
    alone, six jobs of 1024^2 in the modes of phase 5, file by file, with
-   each card's launches and the oracle checked.
+   each card's launches and the oracle checked; then ``--spatial-shards
+   2`` and, on four cards, ``4`` against card 0 alone, with each card's
+   peak memory.
 
 ``python3 chip_smoke.py --multi-gpu`` runs phases 1, 2 and 6 alone.
 
@@ -545,29 +556,14 @@ def phase_batched_vs_plain(torch, inputs, planes, fmasks, copy_bw):
     raw = [[torch.from_numpy(b).to(device) for b in raw_scaled_tile(
         rng, (SIZE, SIZE), thresholds, scales[k], offsets[k])]
         for k in range(n_tiles)]
-    scales_d = torch.from_numpy(scales).to(device)
-    offsets_d = torch.from_numpy(offsets).to(device)
+    scaled = dict(raw=raw, scales=torch.from_numpy(scales).to(device),
+                  offsets=torch.from_numpy(offsets).to(device))
 
     def stack(kind, b, mode):
-        """The first b tiles of a kind as [b, H, W] inputs; 'cover' puts
-        the structured fmask in tile 1."""
-        src = raw if kind == 'device_scale' else \
-            [t[:6] for t in inputs[kind]]
-        bands = [torch.stack([src[k][j] for k in range(b)])
-                 for j in range(6)]
-        fm = [inputs['int16'][k][6] for k in range(b)]
-        if mode == 'cover' and b > 1:
-            fm[1] = fmasks['structured']
-        inv = torch.stack([inputs['int16'][k][7] for k in range(b)])
-        kw = {}
-        if kind == 'device_scale':
-            kw = dict(scales=scales_d[:b].contiguous(),
-                      offsets=offsets_d[:b].contiguous())
-        return bands, torch.stack(fm), inv, kw
+        return _stack(torch, inputs, fmasks, scaled, kind, b, mode)
 
     def plane(name, b):
-        return torch.stack([torch.roll(planes[name], 17 * k, 0)
-                            for k in range(b)])
+        return _plane(torch, planes, name, b)
 
     errors = dict.fromkeys(wtr_kernel.LAUNCHES, 0)
     n_runs = 0
@@ -624,8 +620,8 @@ def phase_batched_vs_plain(torch, inputs, planes, fmasks, copy_bw):
             kw = dict(shadow=plane('shadow', b), landcover=plane(
                 'landcover', b), minimal=True)
             if kind == 'device_scale':
-                kw.update(scales=scales_d[idx].contiguous(),
-                          offsets=offsets_d[idx].contiguous())
+                kw.update(scales=scaled['scales'][idx].contiguous(),
+                          offsets=scaled['offsets'][idx].contiguous())
             sets.append((args, kw))
 
         def kernel(args, kw):
@@ -659,7 +655,171 @@ def phase_batched_vs_plain(torch, inputs, planes, fmasks, copy_bw):
         ms, pms = stats[key]
         out[name] = {'max_abs_err': errors[name], 'ms': ms, 'plain_ms': pms,
                      **_bound(name, tile_bytes)}
-    return out
+    return out, scaled
+
+
+def _stack(torch, inputs, fmasks, scaled, kind, b, mode):
+    """The first b tiles of a kind (int16, float32 or raw int16 with
+    device scale) as [b, H, W] inputs of phases 3b and 3c; 'cover' puts
+    the structured fmask in tile 1."""
+    src = scaled['raw'] if kind == 'device_scale' else \
+        [t[:6] for t in inputs[kind]]
+    bands = [torch.stack([src[k][j] for k in range(b)]) for j in range(6)]
+    fm = [inputs['int16'][k][6] for k in range(b)]
+    if mode == 'cover' and b > 1:
+        fm[1] = fmasks['structured']
+    inv = torch.stack([inputs['int16'][k][7] for k in range(b)])
+    kw = {}
+    if kind == 'device_scale':
+        kw = dict(scales=scaled['scales'][:b].contiguous(),
+                  offsets=scaled['offsets'][:b].contiguous())
+    return bands, torch.stack(fm), inv, kw
+
+
+def _plane(torch, planes, name, b):
+    """An ancillary plane for b tiles, shifted 17 rows from tile to tile."""
+    return torch.stack([torch.roll(planes[name], 17 * k, 0)
+                        for k in range(b)])
+
+
+SHARDS = 4  # row shards of a tile in phases 3c and 5c
+HALO = 17   # parallel/campaign.py::SPATIAL_HALO
+
+
+def _shards(height, halo):
+    """(a0, a1, r0, r1) of each row shard: its padded block [a0, a1) and
+    its own rows [r0, r1), as make_spatial_campaign_step cuts them."""
+    hl = height // SHARDS
+    return [(max(0, j * hl - halo), min(height, (j + 1) * hl + halo),
+             j * hl, (j + 1) * hl) for j in range(SHARDS)]
+
+
+def _blocks(args, kw, a0, a1):
+    """The [B, a1 - a0, W] row block of a stack's planes, each contiguous
+    (the scales and offsets, [B, 6], are the tiles')."""
+    block_kw = {k: (v[:, a0:a1].contiguous()
+                    if hasattr(v, 'dim') and v.dim() == 3 else v)
+                for k, v in kw.items()}
+    return [a[:, a0:a1].contiguous() for a in args], block_kw
+
+
+def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
+    """K6 spatial: B = 2 stacks cut into 4 row shards (with the 17-row
+    halo in 'cover'); every windowed launch against the plain twin on its
+    padded block, cropped, and the 4 pieces joined against the unsharded
+    K6 launch, bit for bit, in every band kind x mode x ancillaries x
+    browse; then the 4 windowed launches of a stack timed against the one
+    unsharded launch."""
+    import itertools
+    from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
+    from proteus_tpu_torch.ops import wtr_kernel
+
+    say(f'== phase 3c: the spatial launch (K6 spatial) vs plain, 2 x {SIZE}'
+        f'x{SIZE} in {SHARDS} row shards')
+    err = n_runs = 0
+
+    def stacks(kind, mode, extras, browse):
+        bands, fm, inv, kw = _stack(torch, inputs, fmasks, scaled, kind, 2,
+                                    mode)
+        if extras:
+            kw.update({name: _plane(torch, planes, name, 2)
+                       for name in ('ocean', 'shadow', 'landcover')})
+        kw['compute_browse'] = browse
+        return [*bands, fm, inv], kw
+
+    for kind, mode, extras, browse in itertools.product(
+            ('int16', 'float32', 'device_scale'), wtr_kernel.MODES,
+            (False, True), (False, True)):
+        cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
+        args, kw = stacks(kind, mode, extras, browse)
+        what = (f'bands={kind} mode={mode} ancillaries={extras} '
+                f'browse={browse}')
+        whole = wtr_kernel.wtr_layers_batched(*args, cfg, **kw)
+        pieces = {}
+        for a0, a1, r0, r1 in _shards(SIZE, HALO if mode == 'cover' else 0):
+            block, block_kw = _blocks(args, kw, a0, a1)
+            window = (r0 - a0, r1 - r0)
+            got = wtr_kernel.wtr_layers_batched(*block, cfg, **block_kw,
+                                                window=window)
+            want = wtr_kernel.wtr_layers_batched_plain(
+                *block, cfg, **block_kw, window=window)
+            torch.cuda.synchronize()
+            err = max(err, _compare(torch, got, want,
+                                    f'{what}, rows {r0}..{r1 - 1}'))
+            for name, t in got.items():
+                pieces.setdefault(name, []).append(t)
+            del block, block_kw, want
+        joined = {name: torch.cat(p, dim=1) for name, p in pieces.items()}
+        err = max(err, _compare(torch, joined, whole,
+                                f'{what}: shards joined vs unsharded'))
+        n_runs += 1
+        del args, kw, whole, pieces, joined
+    say(f'windowed launches == plain twin on their padded blocks, and the '
+        f'joined shards == the unsharded K6 launch, bit for bit, in '
+        f'{n_runs} combinations (int16/float32/device-scale x mask/ignore/'
+        f'cover x ancillaries x browse), {SHARDS * n_runs} windowed '
+        f'launches; max |err| {err}')
+
+    # the 4 windowed launches of a stack against the one unsharded launch,
+    # at the main path's flags (shadow + landcover, browse; full outputs)
+    stats = {}
+    for mode in ('cover', 'mask'):
+        cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
+        args, kw = stacks('int16', mode, False, True)
+        kw.update(shadow=_plane(torch, planes, 'shadow', 2),
+                  landcover=_plane(torch, planes, 'landcover', 2))
+        cut = _shards(SIZE, HALO if mode == 'cover' else 0)
+        blocks = [(*_blocks(args, kw, a0, a1), (r0 - a0, r1 - r0))
+                  for a0, a1, r0, r1 in cut]
+
+        def sharded(fn=wtr_kernel.wtr_layers_batched):
+            for block, block_kw, window in blocks:
+                fn(*block, cfg, **block_kw, window=window)
+
+        def whole():
+            wtr_kernel.wtr_layers_batched(*args, cfg, **kw)
+        runs = {'sharded': [], 'whole': [], 'plain': []}
+        for fn, key, reps in ((sharded, 'sharded', 10), (whole, 'whole', 10),
+                              (lambda: sharded(
+                                  wtr_kernel.wtr_layers_batched_plain),
+                               'plain', 3)):
+            runs[key].append(_time_ms(torch, fn, [()], reps) / 2)
+        for key, fn, reps in (('whole', whole, 10),
+                              ('sharded', sharded, 10)):
+            runs[key].append(_time_ms(torch, fn, [()], reps) / 2)
+        ms = {k: statistics.median(v) for k, v in runs.items()}
+        rows_read = sum(a1 - a0 for a0, a1, _, _ in cut)
+        bound = _spatial_bound(mode, rows_read)
+        say(f'wtr_k6_spatial ({mode!r}, int16, B=2; shadow + landcover + '
+            f'browse): {SHARDS} windowed launches {ms["sharded"]:.4f} '
+            f'ms/tile (runs {runs["sharded"]}), the unsharded launch '
+            f'{ms["whole"]:.4f} (runs {runs["whole"]}), plain twin '
+            f'{ms["plain"]:.4f} (runs {runs["plain"]}); the blocks read '
+            f'{rows_read} of {SIZE} rows, bound {bound["bound_ms"]:.4f} ms '
+            f'({bound["bound_by"]}), {bound["bound_ms"] / ms["sharded"]:.1%}'
+            f' of the kernel time; device copy {copy_bw / 1e9:.1f} GB/s')
+        stats[mode] = {'max_abs_err': err, 'ms': ms['sharded'],
+                       'plain_ms': ms['plain'], **bound}
+        del args, kw, blocks
+    return {'wtr_k6_spatial': stats['cover']}
+
+
+def _spatial_bound(mode, rows_read):
+    """The least time for a tile's shards at the main path's flags: the
+    per-pixel pass reads 16 B/px over every block row and writes 9 B/px
+    of the tile's rows; in 'cover' the state pass (K2's pass A) runs over
+    the block rows and the dilations and full outputs over the tile's."""
+    cover = mode == 'cover'
+    px_read, px = rows_read * SIZE, SIZE * SIZE
+    by_bytes = (16 * px_read + 9 * px) / PEAK_BYTES_PER_S * 1e3
+    pass_a = _OPS['tests_int16'] + _OPS['body'] + (
+        _OPS['cover_state'] if cover else _OPS['snow_bit'])
+    ops = pass_a * px_read + (_OPS['dilations'] if cover else 0) * px \
+        + _OPS['full_outputs'] * px
+    by_ops = ops / PEAK_OPS_PER_S * 1e3
+    return {'bound_ms': max(by_bytes, by_ops),
+            'bound_by': 'bytes' if by_bytes >= by_ops else 'operations',
+            'library_ms': None}
 
 
 class _Collect(logging.Handler):
@@ -835,7 +995,9 @@ def phase_main_path(torch, workdir):
         dem_host, float(md['MEAN_SUN_AZIMUTH_ANGLE']),
         90 - float(md['MEAN_SUN_ZENITH_ANGLE']), -5, 40)[crop]
     if not np.array_equal(got['SHAD'], shad_host.astype(np.uint8)):
-        raise AssertionError('SHAD differs from the host shadow')
+        bad = np.argwhere(got['SHAD'] != shad_host)
+        raise AssertionError(f'SHAD differs from the host shadow in '
+                             f'{len(bad)} px, first at {bad[:8].tolist()}')
     for layer in ('LAND', 'SHAD'):
         vals, counts = np.unique(got[layer], return_counts=True)
         say(f'  {layer} classes: {dict(zip(vals.tolist(), counts.tolist()))}')
@@ -888,11 +1050,9 @@ def phase_main_path(torch, workdir):
     return launches, tile
 
 
-def _run_campaign(torch, label, argv, expect, stats_path, n_tiles=3):
-    """One campaign through the campaign CLI's ``main`` with the launch
-    counts set to 0 just before it and a cold ancillary cache; checks that
-    each slice in ``expect`` launched and returns the counts."""
-    from proteus_tpu_torch.cli.dswx_campaign import main as campaign_main
+def _fresh_campaign(torch):
+    """A cold ancillary and payload cache, the stage times, the peak device
+    memory and the launch counts set to 0, just before a campaign."""
     from proteus_tpu_torch.io.cog import PAYLOAD_CACHE
     from proteus_tpu_torch.ops import wtr_kernel
     from proteus_tpu_torch.parallel import campaign
@@ -903,19 +1063,17 @@ def _run_campaign(torch, label, argv, expect, stats_path, n_tiles=3):
     torch.cuda.reset_peak_memory_stats()
     for name in wtr_kernel.LAUNCHES:
         wtr_kernel.LAUNCHES[name] = 0
-    t0 = time.perf_counter()
-    try:
-        campaign_main(argv + ['--stats-json', stats_path])
-    except SystemExit as exc:
-        raise AssertionError(f'campaign {label} exited with {exc.code}')
-    finally:
-        # the CLI routes stdout/stderr into its logger
-        sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
+    return time.perf_counter()
+
+
+def _campaign_done(torch, label, t0, stats, expect, n_tiles):
+    """The counts just after a campaign: checks that its tiles are done
+    and each slice in ``expect`` launched; prints its wall and stage
+    core-seconds; returns the counts."""
+    from proteus_tpu_torch.ops import wtr_kernel
     wall = time.perf_counter() - t0
     launches = dict(wtr_kernel.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    with open(stats_path) as fh:
-        stats = json.load(fh)
     if stats['tiles_done'] != n_tiles or stats['tiles_failed']:
         raise AssertionError(f'campaign {label}: {stats}')
     for name in expect:
@@ -929,6 +1087,25 @@ def _run_campaign(torch, label, argv, expect, stats_path, n_tiles=3):
         say(f'    {name:<28} {entry["seconds"]:8.2f} s  {entry["calls"]:3d}'
             f' calls')
     return launches
+
+
+def _run_campaign(torch, label, argv, expect, stats_path, n_tiles=3):
+    """One campaign through the campaign CLI's ``main`` with the launch
+    counts set to 0 just before it and a cold ancillary cache; checks that
+    each slice in ``expect`` launched and returns the counts."""
+    from proteus_tpu_torch.cli.dswx_campaign import main as campaign_main
+
+    t0 = _fresh_campaign(torch)
+    try:
+        campaign_main(argv + ['--stats-json', stats_path])
+    except SystemExit as exc:
+        raise AssertionError(f'campaign {label} exited with {exc.code}')
+    finally:
+        # the CLI routes stdout/stderr into its logger
+        sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
+    with open(stats_path) as fh:
+        stats = json.load(fh)
+    return _campaign_done(torch, label, t0, stats, expect, n_tiles)
 
 
 def _same_products(label, got, want, layers):
@@ -1010,6 +1187,115 @@ def phase_campaign(torch, workdir, tile):
             f'{single[-1]} on all 11 layers (WTR ... DEM, BROWSE), its copy '
             f'== tile A; tile B == oracle on WTR, BWTR, CONF, DIAG, WTR-1, '
             f'WTR-2, CLOUD (bit for bit)')
+    return launches, dict(tile_b=tile_b, fmask_b=raw_b['Fmask'],
+                          invalid_b=invalid_b, copies=copies)
+
+
+LAYERS = ['WTR', 'BWTR', 'CONF', 'DIAG', 'WTR-1', 'WTR-2', 'LAND', 'SHAD',
+          'CLOUD', 'DEM', 'BROWSE']
+
+
+def _same_bytes(label, want_dir, got_dir):
+    """Every product file (COG and PNG) of ``want_dir`` byte-identical in
+    ``got_dir`` but for the products' processing time; returns the number
+    of files."""
+    import glob
+    import re
+    stamp = re.compile(rb'PROCESSING_DATETIME">[^<]*<')
+    want = sorted(glob.glob(os.path.join(want_dir, '*', '*.tif'))
+                  + glob.glob(os.path.join(want_dir, '*', '*.png')))
+    for wf in want:
+        gf = os.path.join(got_dir, os.path.relpath(wf, want_dir))
+        with open(wf, 'rb') as a, open(gf, 'rb') as b:
+            if stamp.sub(b'', a.read()) != stamp.sub(b'', b.read()):
+                raise AssertionError(f'campaign {label}: {gf} differs from '
+                                     f'{wf}')
+    return len(want)
+
+
+def _spatial_totals(fmasks, invalids, mode):
+    """The campaign totals by the reference's spatial rule
+    (proteus_tpu/parallel/campaign.py:441-452), on the host: valid =
+    ~invalid (no ocean term), cloudy = preliminary CLOUD != 0."""
+    import numpy as np
+    n_valid = n_cloudy = 0
+    for fm, inv in zip(fmasks, invalids):
+        valid = ~inv
+        cloudy = (fm & (2 | 8 | (4 if mode == 'mask' else 0))) != 0
+        n_valid += int(valid.sum())
+        n_cloudy += int((cloudy & valid).sum())
+    return {'n_valid_total': n_valid, 'n_cloud_and_valid_total': n_cloudy}
+
+
+def _run_runner(torch, label, runner, jobs, expect):
+    """One campaign through ``CampaignRunner.run`` with the launch counts
+    set to 0 just before it; returns the counts and the stats."""
+    t0 = _fresh_campaign(torch)
+    stats = runner.run(jobs)
+    return _campaign_done(torch, label, t0, stats, expect, len(jobs)), stats
+
+
+def phase_spatial_campaign(torch, workdir, tile, ctx):
+    """Campaigns (f) and (e) again through CampaignRunner with each tile's
+    rows cut over a 1 x 4 mesh of card 0 (K6 spatial): (g) 'cover' with
+    the shoreline, (h) scaled with the device cast. Their product files
+    == (f)'s and (e)'s, byte for byte but the processing time; their
+    totals == the reference's spatial rule on the host."""
+    import glob
+    from proteus_tpu_torch.core.thresholds import HlsThresholds
+    from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
+    from proteus_tpu_torch.parallel.campaign import CampaignRunner, TileJob
+
+    say(f'== phase 5c: two spatial campaigns through CampaignRunner, 3 '
+        f'full-size tiles each, {SHARDS} row shards a tile on card 0')
+    mesh = [torch.device(DEVICE, 0)] * SHARDS
+    fmask_a, fmask_b = tile['fmask_a'], ctx['fmask_b']
+    launches = {}
+    for label, dirs, fmasks, mode, extra, expect, like in (
+            ('g (int16, cover, shoreline; spatial)',
+             [tile['input_a'], ctx['tile_b'], ctx['copies']['tile_fa2']],
+             [fmask_a, fmask_b, fmask_a], 'cover',
+             dict(shoreline_shapefile=tile['shoreline']),
+             ('wtr_k1', 'wtr_k2', 'wtr_k6', 'wtr_k6_spatial'), 'f'),
+            ('h (scaled, device scale; spatial)',
+             [tile['input_dir'], ctx['tile_b'], ctx['copies']['tile_a2']],
+             [tile['raw']['Fmask'], fmask_b, tile['raw']['Fmask']], 'mask',
+             {}, ('wtr_k3', 'wtr_k4', 'wtr_k6', 'wtr_k6_spatial'), 'e')):
+        key = label[0]
+        out = os.path.join(workdir, f'campaign_{key}')
+        names = [os.path.basename(d) for d in dirs]
+        jobs = [TileJob(n, sorted(glob.glob(os.path.join(d, '*.tif'))),
+                        os.path.join(out, n), product_id=n,
+                        product_version='0.1', dem_file=tile['dem_file'],
+                        landcover_file=tile['lc_file'],
+                        worldcover_file=tile['wc_file'], **extra)
+                for n, d in zip(names, dirs)]
+        cfg = DswxChainConfig(thresholds=HlsThresholds(),
+                              mask_adjacent_to_cloud_mode=mode,
+                              shadow_masking_algorithm='sun_local_inc_angle')
+        runner = CampaignRunner(config=cfg, mesh=mesh, save_browse=True,
+                                spatial_shards=SHARDS, tiles_per_device=2,
+                                scaled_inputs=key == 'h')
+        if key == 'h' and not runner.device_scale:
+            raise AssertionError('campaign h: the device cast is off')
+        run, stats = _run_runner(torch, label, runner, jobs, expect)
+        for name, n in run.items():
+            launches[name] = launches.get(name, 0) + n
+        want_dir = os.path.join(workdir, f'campaign_{like}')
+        for n in names:
+            _same_products(f'{key} {n}', _read_layers(os.path.join(out, n),
+                                                      n),
+                           _read_layers(os.path.join(want_dir, n), n), LAYERS)
+        n_files = _same_bytes(key, want_dir, out)
+        want = _spatial_totals(fmasks, [tile['invalid'], ctx['invalid_b'],
+                                        tile['invalid']], mode)
+        got = {k: stats[k] for k in want}
+        if got != want:
+            raise AssertionError(f'campaign {key}: totals {got}, the spatial '
+                                 f'rule gives {want}')
+        say(f'campaign {key}: {n_files} product files == campaign {like}\'s '
+            f'byte for byte (but the processing time); totals {got} == the '
+            f'spatial rule (valid = ~invalid, no ocean term)')
     return launches
 
 
@@ -1148,6 +1434,35 @@ def phase_multi_gpu(torch, workdir):
                     f'{[round(p / 2**30, 3) for p in peaks]}')
             outs[devices] = {n: _read_layers(os.path.join(out, n), n)
                              for n in names}
+        # each tile's rows over 2 and over 4 cards (--spatial-shards): full
+        # outputs, K6 spatial, the same products as card 0 alone
+        os.environ['PROTEUS_TPU_TORCH_DEVICE'] = 'cuda'
+        for shards in (2, 4):
+            if n_cards % shards:
+                continue
+            out = os.path.join(workdir, f'multi_{key}_sp{shards}')
+            for k in range(n_cards):
+                torch.cuda.reset_peak_memory_stats(k)
+            _run_campaign(
+                torch, f'{key} on {n_cards} cards, --spatial-shards {shards}',
+                dirs + ['-o', out, '--spatial-shards', str(shards)] + anc
+                + extra, tuple(n for n in expect if n != 'wtr_k5')
+                + ('wtr_k6_spatial',),
+                os.path.join(workdir, f'multi_stats_{key}.json'),
+                n_tiles=len(dirs))
+            peaks = [torch.cuda.max_memory_allocated(k)
+                     for k in range(n_cards)]
+            if min(peaks) == 0:
+                raise AssertionError(f'campaign {key}, {shards} shards: a '
+                                     f'card ran nothing (peak bytes {peaks})')
+            say(f'  peak device memory a card, GiB: '
+                f'{[round(p / 2**30, 3) for p in peaks]}')
+            for n in names:
+                _same_products(f'{key} {n}, {shards} shards',
+                               _read_layers(os.path.join(out, n), n),
+                               outs['cuda:0'][n], layers)
+            say(f'campaign {key}, --spatial-shards {shards}: == card 0 alone '
+                f'on all 11 layers of 6 jobs')
         for n in names:
             _same_products(f'{key} {n}', outs['cuda'][n], outs['cuda:0'][n],
                            layers)
@@ -1206,14 +1521,21 @@ def main(argv=None):
             'count': torch.cuda.device_count()}}))
         return 0
     stats, inputs, planes, fmasks, copy_bw = phase_kernel_vs_plain(torch)
-    stats.update(phase_batched_vs_plain(torch, inputs, planes, fmasks,
-                                        copy_bw))
-    del inputs, planes, fmasks
+    batched, scaled = phase_batched_vs_plain(torch, inputs, planes, fmasks,
+                                             copy_bw)
+    stats.update(batched)
+    stats.update(phase_spatial_vs_plain(torch, inputs, planes, fmasks,
+                                        scaled, copy_bw))
+    del inputs, planes, fmasks, scaled
     torch.cuda.empty_cache()
     os.environ['PROTEUS_TPU_TORCH_DEVICE'] = DEVICE
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as workdir:
         launches, tile = phase_main_path(torch, workdir)
-        for name, n in phase_campaign(torch, workdir, tile).items():
+        campaigns, ctx = phase_campaign(torch, workdir, tile)
+        campaigns.update({k: campaigns.get(k, 0) + n for k, n in
+                          phase_spatial_campaign(torch, workdir, tile,
+                                                 ctx).items()})
+        for name, n in campaigns.items():
             launches[name] = launches.get(name, 0) + n
         phase_step_sweep(torch, tile, workdir)
         if torch.cuda.device_count() > 1:
@@ -1227,7 +1549,8 @@ def main(argv=None):
                 'wtr_k3': 'ops/pallas/wtr_kernel.py:291',
                 'wtr_k4': 'ops/pallas/wtr_kernel.py:302',
                 'wtr_k5': 'ops/pallas/wtr_kernel.py:483',
-                'wtr_k6': 'parallel/campaign.py:251'}
+                'wtr_k6': 'parallel/campaign.py:251',
+                'wtr_k6_spatial': 'parallel/campaign.py:394'}
     say(nvidia_smi_line())
     say(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',

@@ -8,8 +8,9 @@ HLS tile directories and it splits tile batches over the devices with
 prefetched host I/O, a resume manifest, and per-tile retry. The devices
 come from ``PROTEUS_TPU_TORCH_DEVICE`` (default ``cuda``: every visible
 GPU; ``cuda:N`` one of them; ``cpu`` the CPU); asking for CUDA on a
-machine without it is an error. ``--hosts`` and ``--spatial-shards``
-above 1 are not ported yet and raise.
+machine without it is an error. ``--spatial-shards N`` cuts each tile's
+rows over N of them (their number must divide by N). ``--hosts`` above 1
+is not ported yet and raises.
 
 Examples:
     python -m proteus_tpu_torch.cli.dswx_campaign tiles/T15RYP tiles/T15RYN -o out/
@@ -90,7 +91,8 @@ def get_parser():
                              "CUDA, 1 on the CPU")
     parser.add_argument("--spatial-shards", type=int, default=1,
                         help='Shard each tile spatially over this many '
-                             'devices (not ported yet: above 1 raises)')
+                             'devices (the device count must divide by '
+                             'it)')
     parser.add_argument('--hosts', type=int, default=1,
                         help='Dispatch the campaign across this many '
                              'host worker processes (not ported yet: '

@@ -9,8 +9,6 @@ INEXACT_THRESHOLDS = ('integer-band thresholds that are not exact rationals'
 OTSU_SHADOW = "shadow_masking_algorithm 'otsu' (ROADMAP.md Queue 1 item 12)"
 RAW_S2_RESAMPLE = ('10 m / 20 m Sentinel-2 band ingest'
                    ' (ROADMAP.md Queue 1 item 13)')
-SPATIAL_SHARDS = ('spatial sharding of a tile over several GPUs, '
-                  '--spatial-shards > 1 (ROADMAP.md Queue 1 item 19)')
 MULTI_HOST = ('multi-host campaign dispatch, --hosts > 1'
               ' (ROADMAP.md Queue 1 item 20)')
 

@@ -8,13 +8,14 @@
 // plain PyTorch twins are proteus_tpu_torch/models/dswx/chain.py::dswx_chain
 // and ops/wtr_kernel.py::wtr_layers_batched_plain.
 //
-//   K1  int16 bands, 'mask'/'ignore': wtr_pixel_kernel<int16_t, false>.
-//   K3  float32 (offset-and-scaled) bands: wtr_pixel_kernel<float, false>.
+//   K1  int16 bands, 'mask'/'ignore': wtr_pixel_kernel<int16_t, false, *>.
+//   K3  float32 (offset-and-scaled) bands: wtr_pixel_kernel<float, false,
+//       *>.
 //   K2  'cover': wtr_pixel_kernel (K1's or K3's body) stops before snow
 //       and writes one state byte a pixel; wtr_k2_kernel then runs the two
 //       masked dilations on 2-D tiles with their halo and finishes CLOUD,
 //       WTR, BWTR, CONF and BROWSE.
-//   K4  device scale: wtr_pixel_kernel<int16_t, true> reads raw int16
+//   K4  device scale: wtr_pixel_kernel<int16_t, true, *> reads raw int16
 //       bands and casts scale * (float32(band) - offset) per tile in
 //       registers, in the reference's order (io/hls.py:176), before K3's
 //       body; the block stages the batch's [B, 6] scales and offsets in
@@ -29,6 +30,22 @@
 //   K6  batched launch: one launch for a [B, H, W] stack. The per-pixel
 //       pass strides over B*H*W (tile index i / (H*W)); wtr_k2_kernel
 //       takes the tile from blockIdx.z.
+//       Spatial launch (proteus_tpu/parallel/campaign.py:384-439, the
+//       Pallas kernel on a shard's halo-padded rows, then cropped): the
+//       inputs are a [B, Hb, W] block of tile rows, the outputs the
+//       [B, rows_out, W] window of block rows [row0, row0 + rows_out).
+//       The per-pixel pass (wtr_pixel_kernel<*, *, true>) walks the
+//       block; a pixel outside the window writes only its 'cover' state
+//       byte (and nothing outside 'cover', where a shard's block is its
+//       window). wtr_k2_kernel's grid covers the window's rows; it stages
+//       the block's state with zeros beyond the block, reads WTR-2 and
+//       writes its layers in the window. No ghost rows and no copy-out
+//       crop: at the tile's true edges the block simply stops, which is
+//       the single-device border. row0 = 0 and rows_out = Hb is the plain
+//       K6 launch, through wtr_pixel_kernel<*, *, false>, the kernel as
+//       it was before the spatial launch (a runtime window branch in
+//       every launch made the unwindowed ones 15-21% slower; PERF.md,
+//       Findings).
 //
 // Bound: HBM bytes; the work is a few dozen operations a pixel. Per pixel
 // of a 3660 x 3660 tile (13,395,600 px), main-path planes (shadow,
@@ -47,6 +64,9 @@
 //       MB/tile. K4 against K3 halves the band bytes, K5 against full
 //       outputs cuts 9 B out to 2 B. With 'cover' pass A writes 3 B (the
 //       packed planes and the state) and pass B reads 3 B and writes 2 B.
+//   K6 spatial: as K1/K2/K3 with full outputs, the reads of a shard's
+//       block ((Hl + 34) / Hl of its rows in 'cover' within the tile,
+//       949 / 915 at 4 shards of 3660 rows; 1.0 in the other modes).
 //
 // Design: the per-pixel kernels run one thread per pixel over the
 // flattened H*W with a grid-stride loop, so that neighbouring threads load
@@ -275,9 +295,11 @@ __device__ __forceinline__ void finish_pixel(
 
 // K1 (Band = int16_t) and K3 (Band = float); K4 (Band = int16_t, kScaled:
 // raw bands cast per tile before K3's body); with F.cover, pass A of K2;
-// with F.minimal, K5's packed outputs. Each plane is a [B, H, W] stack
-// (K6), hw = H * W.
-template <typename Band, bool kScaled>
+// with F.minimal, K5's packed outputs. Each input plane (and the state) is
+// a [B, H, W] stack (K6), hw = H * W; the outputs are the [B, rows_out, W]
+// window from row row0 (kWindowed; else the whole stack, rows_out == H, and
+// the kernel is K1-K6's as before the spatial launch).
+template <typename Band, bool kScaled, bool kWindowed>
 __global__ void wtr_pixel_kernel(
     const Band* __restrict__ blue, const Band* __restrict__ green,
     const Band* __restrict__ red, const Band* __restrict__ nir,
@@ -291,8 +313,9 @@ __global__ void wtr_pixel_kernel(
     uint8_t* __restrict__ bwtr_o, uint8_t* __restrict__ conf_o,
     uint8_t* __restrict__ cloud_o, uint8_t* __restrict__ browse_o,
     uint8_t* __restrict__ pa_o, uint8_t* __restrict__ pb_o,
-    uint8_t* __restrict__ state_o, int64_t n, int64_t hw, int batch,
-    WtrParams P, WtrParamsF32 Q, WtrFlags F) {
+    uint8_t* __restrict__ state_o, int64_t n, int64_t hw, int width,
+    int row0, int rows_out, int batch, WtrParams P, WtrParamsF32 Q,
+    WtrFlags F) {
   // K4: the batch's scales (sv[6 t + j]) and offsets (sv[6 B + 6 t + j])
   extern __shared__ float sv[];
   if (kScaled) {
@@ -305,6 +328,16 @@ __global__ void wtr_pixel_kernel(
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
+    // o: the pixel's index in the output window, -1 outside it
+    int64_t o = i;
+    if constexpr (kWindowed) {
+      const int64_t tile = i / hw, p = i - tile * hw;
+      const int y = (int)(p / width);
+      o = (y >= row0 && y < row0 + rows_out)
+          ? tile * rows_out * (int64_t)width + p - (int64_t)row0 * width
+          : -1;
+      if (o < 0 && !F.cover) continue;
+    }
     Tests t;
     if constexpr (kScaled) {
       const float* s = sv + 6 * (i / hw);
@@ -334,10 +367,10 @@ __global__ void wtr_pixel_kernel(
     // 65535)
     const int diag6 = inv ? kDiagFill6
         : t.t1 | t.t2 << 1 | t.t3 << 2 | t.t4 << 3 | t.t5 << 4;
-    if (!F.minimal) {
-      diag_o[i] = (uint16_t)(inv ? 65535
+    if (!F.minimal && o >= 0) {
+      diag_o[o] = (uint16_t)(inv ? 65535
           : t.t1 + 10 * t.t2 + 100 * t.t3 + 1000 * t.t4 + 10000 * t.t5);
-      wtr1_o[i] = (uint8_t)wtr1;
+      wtr1_o[o] = (uint8_t)wtr1;
     }
 
     // preliminary CLOUD: shadow (and adjacent, in 'mask' mode) -> 1,
@@ -373,7 +406,7 @@ __global__ void wtr_pixel_kernel(
           || (lc >= 100 && lc < 200 && water);    // high-intensity developed
       if (demote) wtr2 = 0;
     }
-    if (!F.minimal) wtr2_o[i] = (uint8_t)wtr2;
+    if (!F.minimal && o >= 0) wtr2_o[o] = (uint8_t)wtr2;
     const int wtr_idx = widx(wtr1) << 2 | widx(wtr2) << 5;
 
     if (F.cover) {
@@ -382,21 +415,22 @@ __global__ void wtr_pixel_kernel(
       state_o[i] = (uint8_t)(cloud | ((fm & 16) ? kStSnow : 0)
                              | (((fm & 4) && cloud == 0) ? kStAreas : 0)
                              | (water2 ? kStWater : 0));
-      if (F.minimal) {
-        pa_o[i] = (uint8_t)diag6;
-        pb_o[i] = (uint8_t)wtr_idx;
+      if (F.minimal && o >= 0) {
+        pa_o[o] = (uint8_t)diag6;
+        pb_o[o] = (uint8_t)wtr_idx;
       }
       continue;
     }
+    // (outside 'cover', o >= 0 here)
     if (fm & 16) cloud += 2;
     if (F.minimal) {
       // CLOUD's fill (255) is WTR-2's: only its four payload bits ship
       const int cloudp = wtr2 == kFill ? 0 : cloud;
-      pa_o[i] = (uint8_t)(diag6 | (cloudp & 3) << 6);
-      pb_o[i] = (uint8_t)(((cloudp >> 2) & 3) | wtr_idx);
+      pa_o[o] = (uint8_t)(diag6 | (cloudp & 3) << 6);
+      pb_o[o] = (uint8_t)(((cloudp >> 2) & 3) | wtr_idx);
       continue;
     }
-    finish_pixel(i, cloud, wtr2, F, cloud_o, wtr_o, bwtr_o, conf_o,
+    finish_pixel(o, cloud, wtr2, F, cloud_o, wtr_o, bwtr_o, conf_o,
                  browse_o);
   }
 }
@@ -422,17 +456,20 @@ __device__ __forceinline__ void dilate_step(
 // K2 pass B: the 'cover' snow dilations (masking.py:178-204) on a
 // 32 x 32 tile of image blockIdx.z of the stack (K6), then CLOUD, WTR,
 // BWTR, CONF and BROWSE of the tile, or with F.minimal CLOUD's four bits
-// ORed into PACKED_A/B (K5)
+// ORed into PACKED_A/B (K5). The state is the [B, height, width] block;
+// WTR-2 and the layers are the [B, rows_out, width] window from block row
+// row0, whose rows the grid covers (K6 spatial).
 __global__ void __launch_bounds__(256) wtr_k2_kernel(
     const uint8_t* __restrict__ state, const uint8_t* __restrict__ wtr2_in,
     uint8_t* __restrict__ cloud_o, uint8_t* __restrict__ wtr_o,
     uint8_t* __restrict__ bwtr_o, uint8_t* __restrict__ conf_o,
     uint8_t* __restrict__ browse_o, uint8_t* __restrict__ pa,
-    uint8_t* __restrict__ pb, int height, int width, WtrFlags F) {
+    uint8_t* __restrict__ pb, int height, int width, int row0,
+    int rows_out, WtrFlags F) {
   __shared__ uint8_t st[kSpan][kSpan];
   __shared__ uint8_t buf[3][kSpan][kSpan];
-  const int64_t plane = (int64_t)blockIdx.z * height * width;
-  state += plane;
+  state += (int64_t)blockIdx.z * height * width;
+  const int64_t plane = (int64_t)blockIdx.z * rows_out * width;
   if (F.minimal) {
     pa += plane;
     pb += plane;
@@ -444,10 +481,10 @@ __global__ void __launch_bounds__(256) wtr_k2_kernel(
     conf_o += plane;
     if (F.compute_browse) browse_o += plane;
   }
-  const int y0 = blockIdx.y * kTile - kHalo;
+  const int y0 = row0 + blockIdx.y * kTile - kHalo;
   const int x0 = blockIdx.x * kTile - kHalo;
 
-  // stage the state with zeros outside the image; snow_0 into buf[0]
+  // stage the state with zeros outside the block; snow_0 into buf[0]
   for (int r = threadIdx.y; r < kSpan; r += blockDim.y) {
     const int y = y0 + r;
     for (int c = threadIdx.x; c < kSpan; c += blockDim.x) {
@@ -488,8 +525,8 @@ __global__ void __launch_bounds__(256) wtr_k2_kernel(
   for (int r = threadIdx.y; r < kTile; r += blockDim.y) {
     const int y = y0 + kHalo + r;
     const int x = x0 + kHalo + threadIdx.x;
-    if (y >= height || x >= width) continue;
-    const int64_t i = (int64_t)y * width + x;
+    if (y >= row0 + rows_out || x >= width) continue;
+    const int64_t i = (int64_t)(y - row0) * width + x;
     const int sr = r + kHalo, sc = threadIdx.x + kHalo;
     const bool snowed = snow[sr][sc] && !buf[u][sr][sc];
     const int cloud = (st[sr][sc] & kStCloud) + (snowed ? 2 : 0);
@@ -523,7 +560,15 @@ static int check_device(const void* p) {
 // nonzero means the launch was refused or an earlier asynchronous error is
 // pending.
 // band_kind: 0 int16 (K1), 1 float32 (K3), 2 raw int16 with the [batch, 6]
-// float32 scales and offsets (K4). Every plane is a [batch, hw] stack.
+// float32 scales and offsets (K4). Every input plane and the state are a
+// [batch, height, width] stack; the outputs are [batch, rows_out, width],
+// the window of rows [row0, row0 + rows_out).
+static bool bad_window(int batch, int height, int width, int row0,
+                       int rows_out) {
+  return batch < 1 || height < 1 || width < 1 || row0 < 0 || rows_out < 1
+      || row0 + rows_out > height;
+}
+
 extern "C" int wtr_pixel_launch(
     int band_kind, const void* blue, const void* green, const void* red,
     const void* nir, const void* swir1, const void* swir2,
@@ -531,12 +576,13 @@ extern "C" int wtr_pixel_launch(
     const void* invalid, const void* ocean, const void* shadow,
     const void* landcover, void* diag, void* wtr1, void* wtr2, void* wtr,
     void* bwtr, void* conf, void* cloud, void* browse, void* packed_a,
-    void* packed_b, void* state, int batch, int64_t hw,
-    const WtrParams* params, const WtrParamsF32* params_f32,
+    void* packed_b, void* state, int batch, int height, int width, int row0,
+    int rows_out, const WtrParams* params, const WtrParamsF32* params_f32,
     const WtrFlags* flags, void* stream) {
-  if (batch < 1 || batch > kMaxBatch || hw < 1)
+  if (batch > kMaxBatch || bad_window(batch, height, width, row0, rows_out))
     return (int)cudaErrorInvalidValue;
   if (const int err = check_device(blue)) return err;
+  const int64_t hw = (int64_t)height * width;
   const int64_t n = batch * hw;
   const int threads = 256;
   int64_t blocks = (n + threads - 1) / threads;
@@ -551,18 +597,22 @@ extern "C" int wtr_pixel_launch(
       (uint8_t*)wtr1, (uint8_t*)wtr2, (uint8_t*)wtr, (uint8_t*)bwtr,        \
       (uint8_t*)conf, (uint8_t*)cloud, (uint8_t*)browse,                    \
       (uint8_t*)packed_a, (uint8_t*)packed_b, (uint8_t*)state, n, hw,       \
-      batch, *params, *params_f32, *flags
-  if (band_kind == 1) {
-    wtr_pixel_kernel<float, false><<<(unsigned)blocks, threads, 0, s>>>(
-        WTR_PIXEL_ARGS(float));
-  } else if (band_kind == 2) {
-    const size_t smem = 12 * sizeof(float) * (size_t)batch;
-    wtr_pixel_kernel<int16_t, true><<<(unsigned)blocks, threads, smem, s>>>(
-        WTR_PIXEL_ARGS(int16_t));
+      width, row0, rows_out, batch, *params, *params_f32, *flags
+  const size_t smem = band_kind == 2 ? 12 * sizeof(float) * (size_t)batch
+                                     : 0;
+#define WTR_PIXEL_LAUNCH(T, SCALED, WINDOWED)                                \
+  wtr_pixel_kernel<T, SCALED, WINDOWED>                                     \
+      <<<(unsigned)blocks, threads, smem, s>>>(WTR_PIXEL_ARGS(T))
+  if (rows_out == height) {
+    if (band_kind == 1) WTR_PIXEL_LAUNCH(float, false, false);
+    else if (band_kind == 2) WTR_PIXEL_LAUNCH(int16_t, true, false);
+    else WTR_PIXEL_LAUNCH(int16_t, false, false);
   } else {
-    wtr_pixel_kernel<int16_t, false><<<(unsigned)blocks, threads, 0, s>>>(
-        WTR_PIXEL_ARGS(int16_t));
+    if (band_kind == 1) WTR_PIXEL_LAUNCH(float, false, true);
+    else if (band_kind == 2) WTR_PIXEL_LAUNCH(int16_t, true, true);
+    else WTR_PIXEL_LAUNCH(int16_t, false, true);
   }
+#undef WTR_PIXEL_LAUNCH
 #undef WTR_PIXEL_ARGS
   return (int)cudaGetLastError();
 }
@@ -570,16 +620,19 @@ extern "C" int wtr_pixel_launch(
 extern "C" int wtr_k2_launch(
     const void* state, const void* wtr2, void* cloud, void* wtr, void* bwtr,
     void* conf, void* browse, void* packed_a, void* packed_b, int batch,
-    int height, int width, const WtrFlags* flags, void* stream) {
-  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+    int height, int width, int row0, int rows_out, const WtrFlags* flags,
+    void* stream) {
+  if (batch > 65535 || bad_window(batch, height, width, row0, rows_out))
+    return (int)cudaErrorInvalidValue;
   if (const int err = check_device(state)) return err;
   const dim3 threads(kTile, 8);
   const dim3 blocks((width + kTile - 1) / kTile,
-                    (height + kTile - 1) / kTile, batch);
+                    (rows_out + kTile - 1) / kTile, batch);
   wtr_k2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)state, (const uint8_t*)wtr2, (uint8_t*)cloud,
       (uint8_t*)wtr, (uint8_t*)bwtr, (uint8_t*)conf, (uint8_t*)browse,
-      (uint8_t*)packed_a, (uint8_t*)packed_b, height, width, *flags);
+      (uint8_t*)packed_a, (uint8_t*)packed_b, height, width, row0, rows_out,
+      *flags);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,10 @@ step, with the other three slices:
   K3's body;
 - K5: minimal outputs, DIAG6, CLOUD, WTR-1 and WTR-2 packed into the two
   planes PACKED_A and PACKED_B (2 B/px; ``pack_minimal``);
-- K6: one launch for the whole stack (and one for K2's pass).
+- K6: one launch for the whole stack (and one for K2's pass); with
+  ``window``, the spatial launch of a shard (``wtr_k6_spatial``): the
+  inputs are a block of tile rows with its halo, the outputs the block's
+  window of the shard's own rows.
 
 Dispatch follows the tensors' device and nothing else: CUDA tensors launch
 the kernels (or raise), CPU tensors run ``wtr_layers_plain`` or
@@ -42,6 +45,7 @@ from proteus_tpu_torch.models.dswx.masking import lcmask_nir_pq
 # launches of each kernel slice since the counts were last reset (set a
 # count to 0 to reset it)
 LAUNCHES = {f'wtr_k{k}': 0 for k in range(1, 7)}
+LAUNCHES['wtr_k6_spatial'] = 0
 
 LAYERS = ('DIAG', 'WTR-1', 'WTR-2', 'WTR', 'BWTR', 'CONF', 'CLOUD')
 PACKED = ('PACKED_A', 'PACKED_B')
@@ -118,10 +122,10 @@ def kernel_flags(config, with_ocean, with_shadow, with_landcover,
 
 
 def kernel_slices(float_bands, mode, device_scale=False, minimal=False,
-                  batched=False):
+                  batched=False, windowed=False):
     """The kernel slices a CUDA call launches: float32 (``float_bands``) or
     int16 bands, the mode, and for ``wtr_layers_batched`` (``batched``)
-    the device scale and the minimal outputs."""
+    the device scale, the minimal outputs and a window (``windowed``)."""
     slices = ['wtr_k3' if float_bands or device_scale else 'wtr_k1']
     if mode == 'cover':
         slices.append('wtr_k2')
@@ -131,6 +135,8 @@ def kernel_slices(float_bands, mode, device_scale=False, minimal=False,
         slices.append('wtr_k5')
     if batched:
         slices.append('wtr_k6')
+    if windowed:
+        slices.append('wtr_k6_spatial')
     return tuple(slices)
 
 
@@ -180,11 +186,21 @@ def wtr_layers_plain(blue, green, red, nir, swir1, swir2, fmask, invalid,
 def wtr_layers_batched_plain(blue, green, red, nir, swir1, swir2, fmask,
                              invalid, config, scales=None, offsets=None,
                              ocean=None, shadow=None, landcover=None,
-                             compute_browse=True, minimal=False):
+                             compute_browse=True, minimal=False,
+                             window=None):
     """``wtr_layers_batched`` from the plain PyTorch chain (any device):
     per tile, the cast ``scales[j] * (band.float() - offsets[j])`` in
     float32 tensors (with ``scales``), then ``dswx_chain``, then
-    ``pack_minimal`` (with ``minimal``); the layers stacked."""
+    ``pack_minimal`` (with ``minimal``); the layers stacked, and with
+    ``window`` cropped to its rows."""
+    if window is not None:
+        row0, rows = _check_window(window, blue.shape[1])
+        out = wtr_layers_batched_plain(
+            blue, green, red, nir, swir1, swir2, fmask, invalid, config,
+            scales, offsets, ocean, shadow, landcover, compute_browse,
+            minimal)
+        return {name: t[:, row0:row0 + rows].contiguous()
+                for name, t in out.items()}
     bands = (blue, green, red, nir, swir1, swir2)
     tiles = []
     for k in range(blue.shape[0]):
@@ -231,13 +247,19 @@ def wtr_layers(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
 def wtr_layers_batched(blue, green, red, nir, swir1, swir2, fmask, invalid,
                        config, scales=None, offsets=None, ocean=None,
                        shadow=None, landcover=None, compute_browse=True,
-                       minimal=False):
+                       minimal=False, window=None):
     """The layers of a [B, H, W] stack of tiles in one launch (K6): full
     outputs as ``wtr_layers`` gives them, stacked, or with ``minimal``
     PACKED_A and PACKED_B (K5). Bands are all int16 or all float32; with
     ``scales`` and ``offsets`` ([B, 6] float32, one row a tile, bands in
     the order blue, green, red, nir, swir1, swir2) they are raw int16 and
     the float32 chain runs on ``scales * (float32(band) - offsets)`` (K4).
+
+    ``window = (row0, rows)``: the inputs are a block of tile rows (a
+    shard's rows with their halo) and the outputs are [B, rows, W], the
+    layers of block rows row0 .. row0 + rows - 1 (the spatial launch,
+    ``wtr_k6_spatial``). Rows beyond the block count as outside the image.
+
     CUDA tensors launch the kernels, CPU tensors run
     ``wtr_layers_batched_plain``."""
     device = blue.device
@@ -245,7 +267,7 @@ def wtr_layers_batched(blue, green, red, nir, swir1, swir2, fmask, invalid,
         return wtr_layers_batched_plain(
             blue, green, red, nir, swir1, swir2, fmask, invalid, config,
             scales, offsets, ocean, shadow, landcover, compute_browse,
-            minimal)
+            minimal, window)
     if device.type != 'cuda':
         raise ValueError(f'wtr_layers_batched: unsupported device {device}')
     if blue.dim() != 3:
@@ -253,16 +275,26 @@ def wtr_layers_batched(blue, green, red, nir, swir1, swir2, fmask, invalid,
                          f'got {tuple(blue.shape)}')
     return _launch([blue, green, red, nir, swir1, swir2], fmask, invalid,
                    config, scales, offsets, ocean, shadow, landcover,
-                   compute_browse, minimal, batched=True)
+                   compute_browse, minimal, batched=True, window=window)
+
+
+def _check_window(window, height):
+    row0, rows = (int(v) for v in window)
+    if row0 < 0 or rows < 1 or row0 + rows > height:
+        raise ValueError(f'wtr_layers: window of rows {row0} .. '
+                         f'{row0 + rows - 1} does not fit a block of '
+                         f'{height} rows')
+    return row0, rows
 
 
 def _launch(bands, fmask, invalid, config, scales, offsets, ocean, shadow,
-            landcover, compute_browse, minimal, batched):
+            landcover, compute_browse, minimal, batched, window=None):
     out, state, flags, slices = pixel_pass(
         *bands, fmask, invalid, config, scales, offsets, ocean, shadow,
-        landcover, compute_browse, minimal, batched)
+        landcover, compute_browse, minimal, batched, window)
     if state is not None:
-        launch_k2(state, out, flags, slices)
+        launch_k2(state, out, flags, slices,
+                  row0=0 if window is None else int(window[0]))
     return out
 
 
@@ -283,12 +315,12 @@ def _bind(lib):
     if lib.wtr_pixel_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wtr_pixel_launch.argtypes = (
-            [i] + [p] * 24 + [i, ctypes.c_int64, ctypes.POINTER(WtrParams),
-                              ctypes.POINTER(WtrParamsF32),
-                              ctypes.POINTER(WtrFlags), p])
+            [i] + [p] * 24 + [i] * 5 + [ctypes.POINTER(WtrParams),
+                                        ctypes.POINTER(WtrParamsF32),
+                                        ctypes.POINTER(WtrFlags), p])
         lib.wtr_pixel_launch.restype = i
-        lib.wtr_k2_launch.argtypes = [p] * 9 + [i, i, i,
-                                                ctypes.POINTER(WtrFlags), p]
+        lib.wtr_k2_launch.argtypes = [p] * 9 + [i] * 5 + [
+            ctypes.POINTER(WtrFlags), p]
         lib.wtr_k2_launch.restype = i
         lib.wtr_error_string.argtypes = [i]
         lib.wtr_error_string.restype = ctypes.c_char_p
@@ -313,13 +345,15 @@ def _count(slices):
 def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
                scales=None, offsets=None, ocean=None, shadow=None,
                landcover=None, compute_browse=True, minimal=False,
-               batched=True):
+               batched=True, window=None):
     """Launch the per-pixel kernel on a [B, H, W] stack of CUDA tensors:
     K1, K3 or K4, with K5's packed outputs if ``minimal``, or in 'cover'
-    mode pass A of K2. Returns the layers, the 'cover' state bytes (None
-    in the other modes; ``launch_k2`` finishes the layers from them), the
-    launch flags and the slices of the call (``kernel_slices``; K6 with
-    ``batched``)."""
+    mode pass A of K2; with ``window = (row0, rows)`` the layers are the
+    [B, rows, W] window of the stack's rows (the state stays [B, H, W]).
+    Returns the layers, the 'cover' state bytes (None in the other modes;
+    ``launch_k2`` finishes the layers from them), the launch flags and the
+    slices of the call (``kernel_slices``; K6 with ``batched``, K6 spatial
+    with a window)."""
     from proteus_tpu_torch.ops.build import build
 
     mode = config.mask_adjacent_to_cloud_mode
@@ -357,19 +391,22 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
     flags = kernel_flags(config, ocean is not None, shadow is not None,
                          landcover is not None, compute_browse, minimal)
 
-    def plane(dtype=torch.uint8):
-        return torch.empty(shape, dtype=dtype, device=device)
+    row0, rows = _check_window(window or (0, shape[1]), shape[1])
+
+    def plane(dtype=torch.uint8, height=rows):
+        return torch.empty((batch, height, shape[2]), dtype=dtype,
+                           device=device)
     if minimal:
         out = {name: plane() for name in PACKED}
     else:
         out = {'DIAG': plane(torch.uint16)}
         names = LAYERS[1:] + (('BROWSE',) if compute_browse else ())
         out.update({name: plane() for name in names})
-    state = plane() if mode == 'cover' else None
+    state = plane(height=shape[1]) if mode == 'cover' else None
 
     lib = _bind(build('wtr_kernel').lib)
     slices = kernel_slices(float_bands, mode, device_scale, minimal,
-                           batched)
+                           batched, window is not None)
     band_kind = 2 if device_scale else int(float_bands)
     # the launch goes to the current device and the stream handle is that
     # device's: make the tensors' device current (a campaign spreads its
@@ -382,27 +419,30 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
             _ptr(scales), _ptr(offsets), _ptr(fmask), _ptr(invalid),
             _ptr(ocean), _ptr(shadow), _ptr(landcover),
             *[_ptr(out.get(k)) for k in LAYERS + ('BROWSE',) + PACKED],
-            _ptr(state), batch, shape[1] * shape[2], ctypes.byref(params),
-            ctypes.byref(params_f32), ctypes.byref(flags), stream)
+            _ptr(state), batch, shape[1], shape[2], row0, rows,
+            ctypes.byref(params), ctypes.byref(params_f32),
+            ctypes.byref(flags), stream)
     _raise_on(lib, err, f'{"+".join(slices)} launch')
     _count(s for s in slices if s != 'wtr_k2')
     return out, state, flags, slices
 
 
-def launch_k2(state, out, flags, slices=('wtr_k2',)):
+def launch_k2(state, out, flags, slices=('wtr_k2',), row0=0):
     """Pass B of 'cover' mode (kernel K2) on a [B, H, W] stack: from the
     per-pixel pass's state bytes and WTR-2, write CLOUD, WTR, BWTR, CONF
     and BROWSE into ``out`` (CUDA tensors), or with the minimal flag OR
-    CLOUD into PACKED_A/B. Counts one launch of each of ``slices`` but
-    K1, K3 and K4 (pass A's)."""
+    CLOUD into PACKED_A/B; ``out``'s planes are the window of the stack's
+    rows from ``row0``. Counts one launch of each of ``slices`` but K1, K3
+    and K4 (pass A's)."""
     from proteus_tpu_torch.ops.build import build
     lib = _bind(build('wtr_kernel').lib)
     batch, height, width = state.shape
+    rows = next(iter(out.values())).shape[1]
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = lib.wtr_k2_launch(
             _ptr(state), *[_ptr(out.get(k)) for k in (
                 'WTR-2', 'CLOUD', 'WTR', 'BWTR', 'CONF', 'BROWSE') + PACKED],
-            batch, height, width, ctypes.byref(flags), stream)
+            batch, height, width, row0, rows, ctypes.byref(flags), stream)
     _raise_on(lib, err, 'wtr_k2 launch')
     _count(s for s in slices if s not in ('wtr_k1', 'wtr_k3', 'wtr_k4'))

@@ -1,13 +1,17 @@
 """Campaign mode: batched multi-tile processing over the local GPUs.
 
-Port of ``proteus_tpu/parallel/campaign.py`` without its spatial step
-(``make_spatial_campaign_step``, ROADMAP.md Queue 1 item 19):
+Port of ``proteus_tpu/parallel/campaign.py``:
 
 - a batch of whole tiles [B, H, W] is split in order over the devices of
   ``parallel.mesh.make_tile_mesh``; each device runs one
   ``ops.wtr_kernel.wtr_layers_batched`` on its share (kernel slices K4 to
   K6 on CUDA, the plain chain on the CPU) and the campaign totals are
   summed over the devices in Python integers;
+- with ``--spatial-shards``, ``make_spatial_campaign_step`` over the rows
+  of ``parallel.mesh.make_tile_space_mesh`` also cuts each tile's rows
+  over the devices of its row: each shard stages its rows with their halo
+  and makes one windowed launch (K6 spatial), and the tile comes back as
+  row pieces;
 - a host I/O pipeline: a reader thread pool prefetches and decodes the
   next batch of HLS tiles while the devices compute the current one, and
   a writer pool encodes finished COGs;
@@ -33,12 +37,12 @@ import numpy as np
 import torch
 
 from proteus_tpu_torch.core import constants as C
-from proteus_tpu_torch.core.unported import (OTSU_SHADOW, SPATIAL_SHARDS,
-                                             not_ported)
+from proteus_tpu_torch.core.unported import OTSU_SHADOW, not_ported
 from proteus_tpu_torch.models.dswx import masking
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops.wtr_kernel import BANDS, wtr_layers_batched
-from proteus_tpu_torch.parallel.mesh import make_tile_mesh
+from proteus_tpu_torch.parallel.mesh import (make_tile_mesh,
+                                             make_tile_space_mesh)
 
 logger = logging.getLogger('dswx_hls')
 
@@ -185,6 +189,132 @@ def make_campaign_step(config: DswxChainConfig, devices,
 
     return step
 
+
+# influence radius of the 'cover'-mode snow dilation chain: 10 iterations
+# of snow dilation followed by 7 iterations of not-water dilation
+SPATIAL_HALO = 17
+
+
+def _shape(arg):
+    if isinstance(arg, (list, tuple)):
+        return (len(arg),) + tuple(arg[0].shape)
+    return tuple(arg.shape)
+
+
+def _tile_rows(arg, tiles, rows, device):
+    """Rows ``rows`` of the tiles ``tiles`` (two slices) of a [B, H, W]
+    input as one contiguous tensor on ``device``. ``arg`` is an array or
+    tensor, or a list of per-tile (H, W) arrays or tensors; a tile that
+    lies on another card is copied from there."""
+    if isinstance(arg, (list, tuple)):
+        return torch.stack([torch.as_tensor(a)[rows].to(device)
+                            for a in arg[tiles]])
+    return torch.as_tensor(arg)[tiles, rows].to(device).contiguous()
+
+
+def make_spatial_campaign_step(config: DswxChainConfig, mesh,
+                               halo=SPATIAL_HALO, compute_browse=False,
+                               with_ocean=False, with_shadow=False,
+                               with_landcover=False, float_inputs=False,
+                               device_scale=False):
+    """Build the spatially sharded step over ``mesh``, rows of devices
+    (``make_tile_space_mesh``): a batch's tiles are split in order over
+    the rows, and each tile's H rows over the n devices of its row, shard
+    j holding rows [j H/n, (j + 1) H/n).
+
+    Its inputs are ``make_campaign_step``'s: [B, H, W] bands, fmask and
+    invalid (with ``device_scale``, the [B, 6] float32 scales and offsets
+    after ``invalid``, raw int16 bands), then the optional ocean, shadow
+    and landcover; each an array or tensor, or a list of per-tile (H, W)
+    arrays or tensors (a tile the reader left on a card is copied from
+    there to each of its shards' cards).
+
+    Each shard stages its padded row block on its device, its rows and in
+    'cover' mode (the one mode with a neighbourhood operation) ``halo``
+    rows of each neighbour, cut at the tile's edges, and makes one
+    windowed launch of ``wtr_layers_batched`` (K6 spatial on CUDA, the
+    plain chain cropped on the CPU). That staging is the halo exchange of
+    ``proteus_tpu/parallel/campaign.py:342-359``; with no ghost rows the
+    result is the single-device one. Full outputs only, as in the
+    reference.
+
+    Returns ``out[name][k]``, tile k's list of row pieces, one a shard on
+    its shard's device, and the totals as Python integers by the
+    reference's spatial rule (``campaign.py:441-452``): valid pixels are
+    ``~invalid`` (the ocean mask is not applied, unlike the data-parallel
+    step), counted over each shard's own rows; ``n_tiles_total`` counts
+    tiles.
+    """
+    if device_scale and not float_inputs:
+        raise ValueError('device_scale requires float_inputs=True '
+                         '(it feeds the float32 science chain)')
+    mesh = [list(row) for row in mesh]
+    n_tile, n_space = len(mesh), len(mesh[0])
+    mode = config.mask_adjacent_to_cloud_mode
+    reach = halo if mode == 'cover' else 0
+    n_in = 8 + (2 if device_scale else 0) + int(with_ocean) \
+        + int(with_shadow) + int(with_landcover)
+
+    def step(*args):
+        if len(args) != n_in:
+            raise ValueError(f'campaign step: {len(args)} inputs, expected '
+                             f'{n_in}')
+        b, h, _ = _shape(args[0])
+        if b % n_tile:
+            raise ValueError(f'batch of {b} does not split over {n_tile} '
+                             f'tile rows')
+        if h % n_space:
+            raise ValueError(f'tile height {h} does not split over '
+                             f'{n_space} space shards')
+        hl = h // n_space
+        if halo > hl:
+            raise ValueError(
+                f'spatial halo ({halo}) exceeds the per-shard tile height'
+                f' ({hl}); use fewer space shards')
+        per_row = b // n_tile
+        images = list(args[:8]) + list(args[10 if device_scale else 8:])
+        out, counts = {}, []
+        for t, row in enumerate(mesh):
+            tiles = slice(t * per_row, (t + 1) * per_row)
+            for j, dev in enumerate(row):
+                r0 = j * hl
+                a0, a1 = max(0, r0 - reach), min(h, r0 + hl + reach)
+                block = [_tile_rows(a, tiles, slice(a0, a1), dev)
+                         for a in images]
+                b_, g, r, n, s1, s2, fm, inv, *extras = block
+                it = iter(extras)
+                kw = dict(ocean=next(it) if with_ocean else None,
+                          shadow=next(it) if with_shadow else None,
+                          landcover=next(it) if with_landcover else None)
+                if device_scale:
+                    kw['scales'], kw['offsets'] = (
+                        torch.as_tensor(v)[tiles].to(dev).contiguous()
+                        for v in args[8:10])
+                layers = wtr_layers_batched(
+                    b_, g, r, n, s1, s2, fm, inv, config,
+                    compute_browse=compute_browse, minimal=False,
+                    window=(r0 - a0, hl), **kw)
+                for name, v in layers.items():
+                    pieces = out.setdefault(name, [[] for _ in range(b)])
+                    for i in range(per_row):
+                        pieces[t * per_row + i].append(v[i])
+                own = slice(r0 - a0, r0 - a0 + hl)
+                valid = ~inv[:, own].to(torch.bool)
+                prelim = masking.compute_preliminary_cloud_layer(
+                    fm[:, own], mode)
+                counts.append((valid.sum(),
+                               ((prelim != 0) & valid).sum()))
+        # reading the counts waits for every shard's launch
+        totals = {
+            'n_valid_total': sum(int(c[0]) for c in counts),
+            'n_cloud_and_valid_total': sum(int(c[1]) for c in counts),
+            'n_tiles_total': b,
+        }
+        return out, totals
+
+    return step
+
+
 class CampaignManifest:
     """Per-tile status ledger with atomic updates (resume + retry)."""
 
@@ -222,15 +352,18 @@ class _AncillaryCache:
     static files, and every HLS revisit of an MGRS tile shares the same
     product grid — so the warped DEM, the LAND mask, and the ocean mask
     are IDENTICAL across the time series; caching them per (file
-    signature, grid, device) turns their cost into a once-per-grid one. Terrain shadow still runs per
-    tile (it depends on the granule's sun angles) but reuses the cached
-    DEM warp.
+    signature, grid) turns their cost into a once-per-grid one, whatever
+    the number of devices: a value is computed on the device of its first
+    reader, and a reader on another device gets a copy (``.to(device)``,
+    or the key's ``move``), made once and kept with the value. Terrain
+    shadow still runs per tile (it depends on the granule's sun angles)
+    but reuses the cached DEM warp.
 
     Thread-safe with single-flight semantics: concurrent readers of the
-    same key wait for the first computation instead of duplicating it.
-    Capacity is grids, not bytes (at 3660^2 a grid's DEM with its margin,
-    shadow and LAND are about 85 MB of device memory);
-    PROTEUS_TPU_ANC_CACHE=0 disables.
+    same key (or of its copy on one device) wait for the first
+    computation instead of duplicating it. Capacity is keys, not bytes
+    (at 3660^2 a grid's DEM with its margin, shadow and LAND are about 85
+    MB a device); PROTEUS_TPU_ANC_CACHE=0 disables.
     """
 
     def __init__(self, max_entries=None):
@@ -248,45 +381,72 @@ class _AncillaryCache:
         except ValueError:
             return 4
 
-    def get(self, key, compute):
+    def get(self, key, compute, device=None, move=None):
+        """The value of ``key``, from ``compute()`` on its first use. With
+        ``device``, the value on that device: a value computed on another
+        one is copied by ``move(value, device)`` (default: ``.to(device)``
+        of each tensor of a tensor or tuple)."""
         if self.max_entries <= 0:
             return compute()
+        ent = self._flight(self._entries, key, compute, lru=True)
+        value = ent['value']
+        if device is None or _device_of(value) == torch.device(device):
+            return value
+        return self._flight(ent['copies'], str(device), lambda: (
+            move or _move)(value, device))['value']
+
+    def _flight(self, table, key, compute, lru=False):
+        """The entry of ``key`` in ``table``, computed once: concurrent
+        callers wait for the first one's ``compute()``."""
         with self._lock:
-            ent = self._entries.get(key)
-            if ent is None:
+            ent = table.get(key)
+            owner = ent is None
+            if owner:
                 ent = {'event': threading.Event(), 'value': None,
-                       'error': None}
-                self._entries[key] = ent
-                self._order.append(key)
-                while len(self._order) > self.max_entries:
-                    old = self._order.pop(0)
-                    if old != key:
-                        self._entries.pop(old, None)
-                owner = True
-            else:
-                owner = False
+                       'error': None, 'copies': {}}
+                table[key] = ent
+                if lru:
+                    self._order.append(key)
+                    while len(self._order) > self.max_entries:
+                        old = self._order.pop(0)
+                        if old != key:
+                            self._entries.pop(old, None)
         if not owner:
             ent['event'].wait()
             if ent['error'] is not None:
                 raise ent['error']
-            return ent['value']
+            return ent
         try:
             ent['value'] = compute()
         except BaseException as e:
             ent['error'] = e
             with self._lock:
-                self._entries.pop(key, None)
-                if key in self._order:
+                if table.get(key) is ent:
+                    del table[key]
+                if lru and key in self._order:
                     self._order.remove(key)
             ent['event'].set()
             raise
         ent['event'].set()
-        return ent['value']
+        return ent
 
     def clear(self):
         with self._lock:
             self._entries.clear()
             self._order.clear()
+
+
+def _device_of(value):
+    """The device of a tensor, or of the first tensor of a tuple."""
+    if isinstance(value, tuple):
+        return _device_of(value[0])
+    return value.device
+
+
+def _move(value, device):
+    if isinstance(value, tuple):
+        return tuple(_move(v, device) for v in value)
+    return value.to(device)
 
 
 ANCILLARY_CACHE = _AncillaryCache()
@@ -450,12 +610,12 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
             with STAGE_TIMES.stage('read_ocean_mask'):
                 okey = ('ocean', _fsig(job.shoreline_shapefile),
                         job.ocean_masking_shoreline_distance_km, gt, proj,
-                        length, width, str(device))
+                        length, width)
                 return {'ocean_mask': ANCILLARY_CACHE.get(
                     okey, lambda: create_ocean_mask(
                         job.shoreline_shapefile,
                         job.ocean_masking_shoreline_distance_km, '.', gt,
-                        proj, length, width, device=device))}
+                        proj, length, width, device=device), device)}
         preps.append(_prep_ocean)
 
     if job.dem_file:
@@ -481,19 +641,23 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
                     raise not_ported(OTSU_SHADOW)
                 m = C.DEM_MARGIN_IN_PIXELS
                 dkey = ('dem_warp', _fsig(job.dem_file), gt, proj,
-                        length, width, m, str(device))
+                        length, width, m)
+
+                def _crop(dem_m):
+                    return dem_m, dem_m[m:-m, m:-m]
 
                 def _warp_dem():
-                    dem_m = warp_to_grid_device(
+                    return _crop(warp_to_grid_device(
                         job.dem_file, gt, proj, length, width,
                         resample_algorithm='cubic', margin_in_pixels=m,
-                        device=device)
-                    return dem_m, dem_m[m:-m, m:-m]
+                        device=device))
 
                 # the DEM warp is per grid (cached); the shadow depends on
                 # the granule's sun angles, so its key includes them. Both
                 # stay on the device; the writer pool copies them out
-                dem_m, dem_crop = ANCILLARY_CACHE.get(dkey, _warp_dem)
+                dem_m, dem_crop = ANCILLARY_CACHE.get(
+                    dkey, _warp_dem, device,
+                    move=lambda v, dev: _crop(v[0].to(dev)))
 
                 def _shadow():
                     shad = compute_opera_shadow_layer_exact(
@@ -506,8 +670,8 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
 
                 skey = ('shadow', dkey, az, zen, min_slope, max_inc,
                         shadow_alg)
-                shad_crop, shad_packed = ANCILLARY_CACHE.get(skey,
-                                                             _shadow)
+                shad_crop, shad_packed = ANCILLARY_CACHE.get(
+                    skey, _shadow, device)
                 # dkey identifies the warped-DEM payload exactly (file
                 # signature + grid): the writer reuses the encoded COG
                 # blobs across revisits of the grid (io/cog.py
@@ -545,9 +709,9 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
 
                 lkey = ('landcover', _fsig(job.landcover_file),
                         _fsig(job.worldcover_file), gt, proj, length,
-                        width, C.LANDCOVER_MASK_TYPE, forest, str(device))
+                        width, C.LANDCOVER_MASK_TYPE, forest)
                 return {'landcover_mask': ANCILLARY_CACHE.get(
-                    lkey, _landcover)}
+                    lkey, _landcover, device)}
         preps.append(_prep_landcover)
 
     for updates in _run_preps(preps):
@@ -556,17 +720,21 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
 
 
 def _host(a):
-    """A device tensor's copy on the host, as numpy."""
+    """A device tensor's copy on the host, as numpy; a list of row pieces
+    (the spatial step's) is copied piece by piece and joined here."""
+    if isinstance(a, (list, tuple)):
+        return np.concatenate([_host(p) for p in a], axis=0)
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
     """Write all available layers (+ browse) for one tile.
 
-    ``layers`` values may still be device tensors — copied out here, in
-    the writer pool, so the device->host transfer overlaps the next
-    batch's compute. In minimal-transfer mode (a 'PACKED_A' key), the
-    dependent layers are derived here too (models/dswx/host_derive.py)."""
+    ``layers`` values may still be device tensors, or lists of row pieces
+    on their shards' devices — copied out here, in the writer pool, so the
+    device->host transfer overlaps the next batch's compute. In
+    minimal-transfer mode (a 'PACKED_A' key), the dependent layers are
+    derived here too (models/dswx/host_derive.py)."""
     from proteus_tpu_torch.io.png import geotiff2png
     from proteus_tpu_torch.runtime import ctables
     from proteus_tpu_torch.runtime import product_writer as pw
@@ -690,8 +858,6 @@ class CampaignRunner:
                  save_browse=False, processing_params=None,
                  spatial_shards=1, tiles_per_device=None,
                  scaled_inputs=False, device_scale=None):
-        if int(spatial_shards) > 1:
-            raise not_ported(SPATIAL_SHARDS)
         # pool sizing: enough threads to overlap device/link waits with
         # host work, but not so many that they thrash a small host
         ncpu = os.cpu_count() or 1
@@ -701,8 +867,22 @@ class CampaignRunner:
             writer_threads = max(2, min(8, ncpu))
         self.config = config or DswxChainConfig()
         self.scaled_inputs = bool(scaled_inputs)
-        self.mesh = make_tile_mesh(mesh)
-        on_cuda = all(d.type == 'cuda' for d in self.mesh)
+        self.devices = make_tile_mesh(mesh)
+        self.spatial_shards = max(1, int(spatial_shards))
+        if self.spatial_shards > 1:
+            # rows of spatial_shards devices: each tile of a row's share
+            # is cut into spatial_shards row shards
+            n_dev = len(self.devices)
+            if n_dev % self.spatial_shards:
+                raise ValueError(
+                    f'{n_dev} devices not divisible by spatial_shards='
+                    f'{self.spatial_shards}')
+            self.mesh = make_tile_space_mesh(
+                n_dev // self.spatial_shards, self.spatial_shards,
+                self.devices)
+        else:
+            self.mesh = self.devices
+        on_cuda = all(d.type == 'cuda' for d in self.devices)
         if device_scale is None:
             # default on CUDA: the cast runs inside the kernel (K4), which
             # reads half the band bytes; it is bit-identical to the host
@@ -725,14 +905,22 @@ class CampaignRunner:
         self._steps = {}  # keyed by (ocean, shadow, landcover) presence
         self._readers = ThreadPoolExecutor(reader_threads)
         self._writers = ThreadPoolExecutor(writer_threads)
-        # each device's share of a batch is one [tiles_per_device, H, W]
-        # launch (K6)
+        # each device's (or, spatially, each mesh row's) share of a batch
+        # is one [tiles_per_device, H, W] launch (K6) a device
         self.batch_size = len(self.mesh) * self.tiles_per_device
+
+    def _reader_device(self, i):
+        """The device tile i of a batch is read onto: its share's, or
+        spatially the first of its mesh row's."""
+        share = self.mesh[i // self.tiles_per_device]
+        return share[0] if self.spatial_shards > 1 else share
 
     def _step_for(self, with_ocean, with_shadow, with_landcover):
         key = (with_ocean, with_shadow, with_landcover)
         if key not in self._steps:
-            self._steps[key] = make_campaign_step(
+            make = make_spatial_campaign_step if self.spatial_shards > 1 \
+                else make_campaign_step
+            self._steps[key] = make(
                 self.config, self.mesh,
                 compute_browse=self.save_browse,
                 with_ocean=with_ocean, with_shadow=with_shadow,
@@ -780,7 +968,7 @@ class CampaignRunner:
                    if self.manifest.status(j.tile_id) != 'done']
         logger.info(f'campaign: {len(jobs)} tiles, {len(pending)} pending,'
                     f' batch={self.batch_size} over'
-                    f' {len(self.mesh)} devices')
+                    f' {len(self.devices)} devices')
         stats = {'tiles_done': 0, 'tiles_failed': 0,
                  'n_valid_total': 0, 'n_cloud_and_valid_total': 0}
         attempt = {j.tile_id: 0 for j in pending}
@@ -795,11 +983,11 @@ class CampaignRunner:
 
         def submit(batch):
             # each tile is read onto the device of its share of the batch
-            # (_run_batch gives device k tiles k*tpd .. (k+1)*tpd - 1)
+            # (_run_batch gives share k tiles k*tpd .. (k+1)*tpd - 1)
             return [(j, self._readers.submit(
                          _read_tile, j, self.flag_debug, self.config,
                          self.scaled_inputs, self.device_scale,
-                         self.mesh[i // self.tiles_per_device]))
+                         self._reader_device(i)))
                     for i, j in enumerate(batch)]
 
         marked = set()
@@ -885,11 +1073,13 @@ class CampaignRunner:
 
     def _run_batch(self, loaded):
         """Pad the batch to batch_size, stack each device's share on that
-        device, execute."""
+        device (spatially, hand the step the tiles: it stages each shard's
+        rows), execute."""
         b = self.batch_size
         h = loaded[0][1]['length']
         w = loaded[0][1]['width']
         tpd = self.tiles_per_device
+        spatial = self.spatial_shards > 1
         dicts = [d for _, d in loaded]
         dtype_t = {np.int16: torch.int16, np.float32: torch.float32,
                    np.uint8: torch.uint8, bool: torch.bool}
@@ -897,7 +1087,14 @@ class CampaignRunner:
         def stack(key, dtype, pad_value=0):
             """One [tiles_per_device, H, W] tensor a device; tensors the
             reader left on their share's device (ocean, shadow, landcover)
-            stack there without a copy."""
+            stack there without a copy. Spatially, one (H, W) array or
+            tensor a tile."""
+            if spatial:
+                tiles = [d[key] if isinstance(d[key], torch.Tensor)
+                         else np.asarray(d[key], dtype=dtype)
+                         for d in dicts]
+                return tiles + [np.full((h, w), pad_value, dtype)] \
+                    * (b - len(tiles))
             shares = []
             for k, dev in enumerate(self.mesh):
                 arrs = [d[key] for d in dicts[k * tpd:(k + 1) * tpd]]
@@ -926,8 +1123,9 @@ class CampaignRunner:
                     vecs = [np.asarray(d[key], np.float32) for d in dicts]
                     vecs += [np.full(6, pad_value, np.float32)] \
                         * (b - len(vecs))
-                    args.append([torch.from_numpy(np.stack(
-                        vecs[k * tpd:(k + 1) * tpd])).to(dev)
+                    args.append(np.stack(vecs) if spatial else [
+                        torch.from_numpy(np.stack(
+                            vecs[k * tpd:(k + 1) * tpd])).to(dev)
                         for k, dev in enumerate(self.mesh)])
             d0 = dicts[0]
             with_ocean = 'ocean_mask' in d0

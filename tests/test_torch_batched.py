@@ -146,7 +146,11 @@ def test_kernel_slices_and_flags():
     flags = wtr_kernel.kernel_flags(DswxChainConfig(), False, True, True,
                                     True, minimal=True)
     assert flags.minimal == 1 and flags.compute_browse == 0
-    assert sorted(wtr_kernel.LAUNCHES) == [f'wtr_k{k}' for k in range(1, 7)]
+    assert wtr_kernel.kernel_slices(False, 'cover', batched=True,
+                                    windowed=True) == \
+        ('wtr_k1', 'wtr_k2', 'wtr_k6', 'wtr_k6_spatial')
+    assert sorted(wtr_kernel.LAUNCHES) == \
+        [f'wtr_k{k}' for k in range(1, 7)] + ['wtr_k6_spatial']
 
 
 def test_pack_minimal_matches_jax():

@@ -22,8 +22,7 @@ from proteus_tpu.parallel import campaign as jcampaign
 from proteus_tpu.parallel.mesh import make_tile_mesh as jax_mesh
 from proteus_tpu.runtime.compare import compare_dswx_hls_products
 from proteus_tpu_torch.cli import dswx_campaign as tcli
-from proteus_tpu_torch.core.unported import (MULTI_HOST, OTSU_SHADOW,
-                                             SPATIAL_SHARDS)
+from proteus_tpu_torch.core.unported import MULTI_HOST, OTSU_SHADOW
 from proteus_tpu_torch.models.dswx import host_derive as tderive
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops import wtr_kernel
@@ -374,7 +373,6 @@ def test_tiles_per_device_default(monkeypatch):
 
 @pytest.mark.parametrize('argv,match', [
     (['--hosts', '2'], 'multi-host'),
-    (['--spatial-shards', '2'], 'spatial sharding'),
     (['--shadow-masking-algorithm', 'otsu', '--dem', 'dem.tif'], 'otsu'),
 ])
 def test_cli_unported_raise(tiles, tmp_path, monkeypatch, argv, match):
@@ -384,7 +382,7 @@ def test_cli_unported_raise(tiles, tmp_path, monkeypatch, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(dirs[:1] + ['-o', str(tmp_path / 'o')] + argv)
     assert not glob.glob(str(tmp_path / 'o' / '*' / '*.tif'))
-    assert MULTI_HOST and SPATIAL_SHARDS and OTSU_SHADOW
+    assert MULTI_HOST and OTSU_SHADOW
 
 
 _CLI_SCRIPT = r'''

@@ -280,7 +280,8 @@ def test_kernel_plain_matches_pallas_interpret(mode, with_ancillaries,
 
 def test_cpu_tensors_never_launch_the_kernel():
     before = dict(wtr_kernel.LAUNCHES)
-    assert sorted(before) == [f'wtr_k{k}' for k in range(1, 7)]
+    assert sorted(before) == [f'wtr_k{k}' for k in range(1, 7)] \
+        + ['wtr_k6_spatial']
     for bands, mode in itertools.product(
             (INPUTS['bands'], [b.astype(np.float32) * np.float32(1e-4)
                                for b in INPUTS['bands']]),
@@ -294,6 +295,10 @@ def test_cpu_tensors_never_launch_the_kernel():
             *[T(b[None]) for b in bands], T(INPUTS['fmask'][None]),
             T(INPUTS['invalid'][None]), cfg, minimal=True)
         assert sorted(out) == ['PACKED_A', 'PACKED_B']
+        out = wtr_kernel.wtr_layers_batched(
+            *[T(b[None]) for b in bands], T(INPUTS['fmask'][None]),
+            T(INPUTS['invalid'][None]), cfg, window=(1, 2))
+        assert out['WTR'].shape[1] == 2
     assert wtr_kernel.LAUNCHES == before
 
 

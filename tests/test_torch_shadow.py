@@ -105,3 +105,69 @@ def test_gradient_matches_numpy():
                                   gy)
     np.testing.assert_array_equal(tshadow._np_gradient_axis(t, 1).numpy(),
                                   gx)
+
+
+# The exact shadow of a warped DEM against the host's, in a process of its
+# own: argv is the DEM file, the torch thread count ('default' or a
+# number) and whether to import jax first. It warps the DEM onto the
+# synthetic grid with its margin on the CPU (warp_to_grid_device) and on
+# the host (warp_to_grid), and prints the pixels in which the two warped
+# DEMs differ, in which compute_opera_shadow_layer_exact differs from
+# _host_shadow_exact on the device-warped DEM and on the host-warped DEM
+# (the whole margin DEM), and on the crop.
+_FRESH_SCRIPT = r'''
+import json, sys
+dem_file, threads, with_jax = sys.argv[1], sys.argv[2], sys.argv[3] == '1'
+if with_jax:
+    import jax.numpy as jnp
+    jnp.zeros(3).block_until_ready()
+import numpy as np, torch
+if threads != 'default':
+    torch.set_num_threads(int(threads))
+from proteus_tpu_torch.geo.crs import CRS
+from proteus_tpu_torch.geo.warp import warp_to_grid, warp_to_grid_device
+from proteus_tpu_torch.models.dswx.shadow import (
+    _host_shadow_exact, compute_opera_shadow_layer_exact)
+from proteus_tpu_torch.testing import synthetic
+size, m = int(sys.argv[4]), 50
+args = (dem_file, synthetic.geotransform(),
+        CRS.from_epsg(synthetic.EPSG).to_wkt(), size, size)
+dev = warp_to_grid_device(*args, resample_algorithm='cubic',
+                          margin_in_pixels=m, device=torch.device('cpu'))
+host = warp_to_grid(*args, resample_algorithm='cubic', margin_in_pixels=m)
+md = synthetic.HLS_METADATA
+angles = (float(md['MEAN_SUN_AZIMUTH_ANGLE']),
+          90 - float(md['MEAN_SUN_ZENITH_ANGLE']), -5, 40)
+got = compute_opera_shadow_layer_exact(dev, *angles).numpy()
+d = dev.numpy()
+want_dev, want_host = (_host_shadow_exact(a, *angles) for a in (d, host))
+print(json.dumps({
+    'threads': torch.get_num_threads(), 'jax': with_jax,
+    'dem': int((~((d == host) | (np.isnan(d) & np.isnan(host)))).sum()),
+    'shadow_on_device_dem': int((got != want_dev).sum()),
+    'shadow_on_host_dem': int((got != want_host).sum()),
+    'crop': int((got[m:-m, m:-m] != want_host[m:-m, m:-m]).sum())}))
+'''
+
+
+def test_shadow_matches_host_in_a_fresh_process(tmp_path):
+    """Guard for a mismatch seen once in a CPU rehearsal (18-22 of
+    1,210,000 px in one of several fresh processes): the synthetic 1000^2
+    DEM warped with its 50 px margin, shadow against host shadow over the
+    whole margin DEM, in a process of its own with one torch thread."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from proteus_tpu_torch.testing import synthetic
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dem = synthetic.make_dem(str(tmp_path), size=1000)
+    proc = subprocess.run(
+        [sys.executable, '-c', _FRESH_SCRIPT, dem, '1', '0', '1000'],
+        env=dict(os.environ, PYTHONPATH=repo), cwd=repo,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {'threads': 1, 'jax': False, 'dem': 0,
+                   'shadow_on_device_dem': 0, 'shadow_on_host_dem': 0,
+                   'crop': 0}
