@@ -27,7 +27,10 @@ Phases, each printed on its own line; any failure exits nonzero:
    launch against the plain twin on its padded block, cropped, and the
    joined shards against the unsharded K6 launch, in every band kind x
    mode x ancillaries x browse; the 4 windowed launches timed against the
-   one unsharded launch;
+   one unsharded launch. The null kernel (phase 3d): the traffic floor
+   ``null_fold`` against its plain twin at 3660^2 on int16, float32 and
+   mixed inputs, 1, 3 and 8 of them, on an unaligned slice and a ragged
+   tail; its time beside the device copy bandwidth;
 4. main path: a full-size synthetic HLS tile (3660^2 bands, DEM with its
    50 px margin, 3x WorldCover grid) through
    ``python -m proteus_tpu_torch.cli.dswx_hls``'s ``main`` on ``cuda``
@@ -57,6 +60,20 @@ Phases, each printed on its own line; any failure exits nonzero:
    each card's launches and the oracle checked; then ``--spatial-shards
    2`` and, on four cards, ``4`` against card 0 alone, with each card's
    peak memory.
+
+7. profile: ``proteus_tpu_torch.tools.kernel_profile``'s ``main`` at full
+   size (the null kernel's caller; its launch count starts at 0): every
+   variant's ms/tile, effective GB/s and the attribution; the bench twin
+   once at a small K; then the default single-tile CLI run again with
+   ``PROTEUS_TPU_TRACE_DIR`` set: the device's busy and idle share over
+   the device-chain stage, the top device operations, and the traced
+   run's layers against run (c)'s;
+8. otsu and raw Sentinel-2: the otsu hillshade at full size (with the DEM
+   margin) on four terrains against the host float64 oracle, bytes and
+   otsu masks, with the uncertainty band's population; a full-size
+   single-tile CLI run with ``shadow_masking_algorithm: otsu``, SHAD
+   against the host otsu chain on the host-warped DEM; one 10 m band of
+   3 x 3660 px a side ingested on the card against the numpy 3 x 3 mean.
 
 ``python3 chip_smoke.py --multi-gpu`` runs phases 1, 2 and 6 alone.
 
@@ -129,13 +146,18 @@ def phase_build():
         f'{native_build.linked()}; codec in use: {native.codec()}')
     if not native.codec().startswith('native'):
         raise AssertionError('the native codec did not load')
+    # one nvcc a source, all started together
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    built = build('wtr_kernel')
-    say(f'wtr_kernel: {built.path}; nvcc {built.seconds:.2f} s, '
-        f'build+load {time.perf_counter() - t0:.2f} s')
-    for line in built.log.splitlines():
-        if 'ptxas' in line:
-            say(f'    {line.strip()}')
+    names = ('wtr_kernel', 'null_kernel')
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(build, names))
+    for name, built in zip(names, builds):
+        say(f'{name}: {built.path}; nvcc {built.seconds:.2f} s, both built '
+            f'and loaded {time.perf_counter() - t0:.2f} s after the start')
+        for line in built.log.splitlines():
+            if 'ptxas' in line:
+                say(f'    {line.strip()}')
 
 
 def _random_inputs(torch, rng, device):
@@ -463,6 +485,9 @@ def phase_kernel_vs_plain(torch):
 # (K2) moves no more than K1 does; its state bytes are the kernel's own.
 FUNCTION_BYTES_PER_PX = {'wtr_k1': 25, 'wtr_k2': 25, 'wtr_k3': 37,
                          'wtr_k4': 18, 'wtr_k5': 18, 'wtr_k6': 18}
+# the null kernel over the profile tool's 8 planes (6 bands, fmask,
+# invalid) and its one uint8 plane out: int16 bands, float32 bands
+NULL_BYTES_PER_PX = {'int16': 6 * 2 + 1 + 1 + 1, 'float32': 6 * 4 + 1 + 1 + 1}
 # operations a pixel each slice's function needs at the main path's flags,
 # for the operations side of the bound: counted line by line in
 # csrc/wtr_kernel.cu, one for each add, multiply, divide, convert,
@@ -519,6 +544,8 @@ OPS_PER_PX = {
     + _OPS['packed'],
     'wtr_k6': _OPS['tests_int16'] + _OPS['body'] + _OPS['snow_bit']
     + _OPS['packed'],
+    # the null kernel on 8 inputs: a convert and an XOR an input, the mask
+    'null': 2 * 8 + 1,
 }
 
 
@@ -822,6 +849,95 @@ def _spatial_bound(mode, rows_read):
             'library_ms': None}
 
 
+def phase_null_vs_plain(torch, inputs, copy_bw):
+    """The traffic-floor null kernel (``ops/null_kernel.py::null_fold``)
+    against its plain twin on the card, bit for bit: int16, float32 and
+    mixed inputs, 1, 3 and 8 of them, an unaligned slice and a ragged tail
+    (the scalar kernel); then its time on the profile tool's footprint (6
+    bands + fmask + invalid) for int16 and float32 bands."""
+    import numpy as np
+    from proteus_tpu_torch.ops import null_kernel
+    from proteus_tpu_torch.ops.null_kernel import null_fold, null_fold_plain
+
+    say(f'== phase 3d: the null kernel vs its plain twin, {SIZE}x{SIZE}')
+    device = torch.device(DEVICE)
+    rng = np.random.default_rng(20261018)
+    # float32 planes with fractions of both signs (the cast truncates
+    # toward zero), well inside int32
+    wide = [torch.from_numpy(rng.uniform(-30000, 30000, (SIZE, SIZE))
+                             .astype(np.float32)).to(device)
+            for _ in range(2)]
+    i16, f32 = inputs['int16'][0], inputs['float32'][0]
+    n = SIZE * SIZE
+    cases = {
+        'int16 bands + fmask + invalid (8)': (i16, True),
+        'float32 bands + fmask + invalid (8)': (f32, True),
+        'int16 (1)': (i16[:1], True),
+        'uint8 (1)': (i16[6:7], True),
+        'float32, wide (1)': (wide[:1], True),
+        'int16, uint8, float32 (3)': ((i16[0], i16[6], wide[0]), True),
+        'float32, bool, int16 (3)': ((wide[1], i16[7], i16[3]), True),
+        'mixed (8)': ((i16[0], wide[0], i16[6], f32[1], i16[7], i16[2],
+                       wide[1], f32[5]), True),
+        # a slice that starts 3 elements into each plane: no pointer is
+        # aligned to its vector, the scalar kernel takes all of it
+        'mixed (8), unaligned': (tuple(
+            t.reshape(-1)[3:n - 2] for t in (*i16[:3], *f32[3:6], i16[6],
+                                             i16[7])), False),
+        # aligned, n % 8 = 3: the vector kernel and a scalar tail
+        'int16 (8), ragged tail': (tuple(t.reshape(-1)[:n - 5]
+                                         for t in i16), True),
+        # the rows 1.. of tile 1 of a [2, H, W] stack
+        'stack rows (3)': (tuple(torch.stack([t, t])[1, 1:]
+                                 for t in (i16[0], i16[6], f32[0])),
+                           (SIZE % 8 == 0)),
+    }
+    err = 0
+    for what, (args, vectorized) in cases.items():
+        # the wrapper's launch, which also says which kernel it took
+        null_kernel._check(args)
+        got, took_vector = null_kernel._launch(args)
+        want = null_fold_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, _compare(torch, {'null': got}, {'null': want},
+                                f'null kernel, {what}'))
+        if took_vector != vectorized:
+            raise AssertionError(
+                f'null kernel, {what}: vector kernel {took_vector}, '
+                f'expected {vectorized}')
+    n_cases = len(cases)
+    del wide, cases
+    say(f'null kernel == plain twin, bit for bit, in {n_cases}'
+        f' cases (int16 / float32 / uint8 / bool planes, 1, 3 and 8 inputs, '
+        f'an unaligned slice and a ragged tail through the scalar kernel); '
+        f'max |err| {err}')
+
+    stats = {}
+    for kind in ('int16', 'float32'):
+        sets = inputs[kind]
+        plain_ms = [_time_ms(torch, null_fold_plain, sets, 3)]
+        kernel_ms = [_time_ms(torch, null_fold, sets, 10),
+                     _time_ms(torch, null_fold, sets, 10)]
+        plain_ms.append(_time_ms(torch, null_fold_plain, sets, 3))
+        ms, pms = statistics.median(kernel_ms), statistics.median(plain_ms)
+        tile_bytes = NULL_BYTES_PER_PX[kind] * n
+        bound = _bound('null', tile_bytes)
+        say(f'null ({kind} bands + fmask + invalid): kernel {ms:.4f} ms/tile '
+            f'(runs {kernel_ms}), plain twin {pms:.4f} ms/tile (runs '
+            f'{plain_ms}); {NULL_BYTES_PER_PX[kind]} B/px = '
+            f'{tile_bytes / 1e6:.1f} MB/tile = '
+            f'{tile_bytes / (ms * 1e-3) / 1e9:.1f} GB/s, '
+            f'{tile_bytes / (ms * 1e-3) / copy_bw:.1%} of the device copy '
+            f'({copy_bw / 1e9:.1f} GB/s); bound {bound["bound_ms"]:.4f} ms '
+            f'({bound["bound_by"]}), {bound["bound_ms"] / ms:.1%} of the '
+            f'kernel time')
+        stats[kind] = {'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
+                       **bound}
+    if null_kernel.LAUNCHES['null'] < 1:
+        raise AssertionError('the null kernel was never launched')
+    return {'null': stats['int16']}
+
+
 class _Collect(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -889,6 +1005,17 @@ def _read_layers(output_dir, product='dswx_hls_test'):
     return got
 
 
+def _load_oracle():
+    """``tests/oracle.py`` of this checkout (numpy and scipy only), loaded
+    by its path; ``sys.path`` stays as it is."""
+    import importlib.util
+    path = os.path.join(REPO, 'tests', 'oracle.py')
+    spec = importlib.util.spec_from_file_location('oracle', path)
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    return oracle
+
+
 def _hold_against_oracle(oracle, label, got, bands, fmask, invalid, mode,
                          ocean=None):
     """The per-pixel layers vs the numpy oracle, fed the run's own SHAD and
@@ -920,8 +1047,7 @@ def _hold_against_oracle(oracle, label, got, bands, fmask, invalid, mode,
 def phase_main_path(torch, workdir):
     import shutil
     import numpy as np
-    sys.path.insert(0, os.path.join(REPO, 'tests'))
-    import oracle
+    oracle = _load_oracle()
     from proteus_tpu_torch.geo.crs import CRS
     from proteus_tpu_torch.geo.polygon import create_ocean_mask
     from proteus_tpu_torch.geo.warp import warp_to_grid
@@ -1046,7 +1172,7 @@ def phase_main_path(torch, workdir):
     tile = dict(files=files, raw=raw, ints=ints, invalid=invalid,
                 input_dir=input_dir, input_a=input_a, fmask_a=fmask_a,
                 ocean=ocean, dem_file=dem_file, lc_file=lc_file,
-                wc_file=wc_file, shoreline=shoreline)
+                wc_file=wc_file, shoreline=shoreline, dem_host=dem_host)
     return launches, tile
 
 
@@ -1120,8 +1246,7 @@ def _same_products(label, got, want, layers):
 def phase_campaign(torch, workdir, tile):
     import shutil
     import numpy as np
-    sys.path.insert(0, os.path.join(REPO, 'tests'))
-    import oracle
+    oracle = _load_oracle()
     from proteus_tpu_torch.testing import synthetic
 
     say('== phase 5: three campaigns through the campaign CLI, 3 full-size '
@@ -1349,8 +1474,7 @@ def phase_multi_gpu(torch, workdir):
     against the oracle."""
     import shutil
     import numpy as np
-    sys.path.insert(0, os.path.join(REPO, 'tests'))
-    import oracle
+    oracle = _load_oracle()
     from proteus_tpu_torch.geo.crs import CRS
     from proteus_tpu_torch.geo.polygon import create_ocean_mask
     from proteus_tpu_torch.testing import synthetic
@@ -1485,6 +1609,251 @@ def phase_multi_gpu(torch, workdir):
     os.environ['PROTEUS_TPU_TORCH_DEVICE'] = DEVICE
 
 
+PROFILE_VARIANTS = ('floor_int16_inputs', 'floor_f32_inputs', 'int_full',
+                    'int_minimal_packed', 'int_full_cover', 'scaled_full',
+                    'scaled_minimal_packed', 'plain_chain')
+
+
+def _default_runconfig(workdir, tile, label, **extra):
+    """A runconfig of the default run on tile A with its own output
+    directory ``output_<label>``."""
+    from proteus_tpu_torch.testing import synthetic
+    return synthetic.write_runconfig(
+        os.path.join(workdir, f'rc_{label}.yaml'), tile['input_dir'],
+        os.path.join(workdir, f'output_{label}'),
+        os.path.join(workdir, f'scratch_{label}'),
+        dem_file=tile['dem_file'], landcover_file=tile['lc_file'],
+        worldcover_file=tile['wc_file'], check_coverage=True, **extra)
+
+
+def _short(name):
+    """A device operation's name without its argument list."""
+    return name.split('(')[0]
+
+
+def phase_profile(torch, workdir, tile):
+    """The kernel-profile twin at full size through its ``main`` (the null
+    kernel's caller: the launch counts start at 0 just before it), the
+    bench twin once, and the default single-tile run again under
+    ``PROTEUS_TPU_TRACE_DIR``: the device's busy and idle share over the
+    device-chain stage, and the traced run's layers against run (c)'s."""
+    import glob
+    from proteus_tpu_torch.ops import null_kernel, wtr_kernel
+    from proteus_tpu_torch.runtime.profiling import device_busy_share
+    from proteus_tpu_torch.tools import bench, kernel_profile
+
+    say(f'== phase 7: the kernel-profile tool at {SIZE}x{SIZE}, the bench '
+        f'twin, and a traced default run')
+    for name in wtr_kernel.LAUNCHES:
+        wtr_kernel.LAUNCHES[name] = 0
+    null_kernel.LAUNCHES['null'] = 0
+    out = os.path.join(workdir, 'kernel_profile.json')
+    # 16 launches a pass: with the tool's default of 4 the first launch's
+    # start-up is a sixth of the null kernel's pass
+    rc = kernel_profile.main(['--size', str(SIZE), '--device', DEVICE,
+                              '--iters', '16', '--out', out, '--trace-dir',
+                              os.path.join(workdir, 'trace_profile')])
+    launches = {**wtr_kernel.LAUNCHES, **null_kernel.LAUNCHES}
+    if rc != 0:
+        raise AssertionError(f'kernel_profile exited with {rc}')
+    with open(out) as fh:
+        prof = json.load(fh)
+    if tuple(prof['variants']) != PROFILE_VARIANTS:
+        raise AssertionError(f'kernel_profile variants: '
+                             f'{tuple(prof["variants"])}')
+    for name in ('null', 'wtr_k1', 'wtr_k2', 'wtr_k3', 'wtr_k5', 'wtr_k6'):
+        if launches[name] < 1:
+            raise AssertionError(f'kernel_profile never launched {name}')
+    say(f'kernel_profile on {prof["device"]} ({prof["timer"]}, '
+        f'{prof["iters"]} launches a pass, median of {prof["passes"]}), '
+        f'launches {launches}:')
+    for name, v in prof['variants'].items():
+        say(f'    {name:<24} {v["s_per_tile"] * 1e3:9.4f} ms/tile  '
+            f'{v["effective_gbps"]:8.1f} GB/s  ({v["hbm_in_mb"]} MB in, '
+            f'{v["hbm_out_mb"]} MB out)')
+    say(f'    attribution, 1 - floor / variant: '
+        f'{prof["attribution"]["compute_share"]}; '
+        f'{prof["attribution"]["conclusion"]}')
+    if 'trace_busy' in prof:
+        busy = prof['trace_busy']
+        say(f'    trace of one int_minimal_packed launch: device busy '
+            f'{busy["busy_s"] * 1e3:.4f} ms of {busy["window_s"] * 1e3:.4f} '
+            f'ms; operations '
+            f'{[(_short(n), round(t * 1e3, 4), c) for n, t, c in busy["top"]]}')
+
+    wtr_kernel.LAUNCHES['wtr_k6'] = 0
+    if bench.main(['--size', str(SIZE), '--iters', '2', '--passes', '2',
+                   '--device', DEVICE]) != 0:
+        raise AssertionError('the bench twin failed')
+    launches['wtr_k6'] += wtr_kernel.LAUNCHES['wtr_k6']
+
+    # the default run again, traced
+    trace_dir = os.path.join(workdir, 'trace_run')
+    os.environ['PROTEUS_TPU_TRACE_DIR'] = trace_dir
+    try:
+        run = _run_cli(torch, 't (default, traced)',
+                       [_default_runconfig(workdir, tile, 't')], ('wtr_k1',))
+    finally:
+        del os.environ['PROTEUS_TPU_TRACE_DIR']
+    for name, n in run.items():
+        launches[name] = launches.get(name, 0) + n
+    _same_products('t (traced)', _read_layers(os.path.join(workdir,
+                                                           'output_t')),
+                   _read_layers(os.path.join(workdir, 'output_c')), LAYERS)
+    traces = glob.glob(os.path.join(trace_dir, '*.json'))
+    if len(traces) != 1:
+        raise AssertionError(f'expected one trace in {trace_dir}: {traces}')
+    busy = device_busy_share(traces[0], window='device chain (compile+run)')
+    hand = [_short(n) for n, _, _ in busy['top'] if 'wtr_pixel_kernel' in n]
+    say(f'run t: all 11 layers == run c; trace {os.path.getsize(traces[0])} '
+        f'bytes; over the device-chain stage ({busy["window_s"] * 1e3:.3f} '
+        f'ms) the device was busy {busy["busy_s"] * 1e3:.3f} ms '
+        f'({busy["busy_share"]:.2%}) and idle {busy["idle_s"] * 1e3:.3f} ms '
+        f'({busy["idle_share"]:.2%}), {busy["n_device_operations"]} device '
+        f'operations; the hand kernel in the trace: {hand or "MISSING"}')
+    for name, seconds, count in busy['top']:
+        say(f'    {seconds * 1e3:9.4f} ms  {count:4d} x  {name[:100]}')
+    whole = device_busy_share(traces[0])
+    say(f'  whole trace (device chain + device->host transfer, first to '
+        f'last device operation): busy {whole["busy_s"] * 1e3:.3f} ms of '
+        f'{whole["window_s"] * 1e3:.3f} ms ({whole["busy_share"]:.2%})')
+    return launches
+
+
+def terrains(size):
+    """The four DEMs of tools/hillshade_tpu_parity.py:29-40: a smooth
+    random surface, a noisy 6000 m plateau (the worst float32
+    cancellation), the smooth one with 5% NaN holes, a quadratic sweep."""
+    import numpy as np
+    rng = np.random.default_rng(20260818)
+    base = rng.normal(0, 1, (size, size)).cumsum(0).cumsum(1)
+    smooth = (base / np.abs(base).max() * 800 + 200).astype(np.float32)
+    plateau = (6000.0 + rng.normal(0, 2.0, (size, size))).astype(np.float32)
+    holed = smooth.copy()
+    holed[rng.random((size, size)) < 0.05] = np.nan
+    col = np.arange(size, dtype=np.float64)
+    sweep = np.tile((0.002 * col ** 2).astype(np.float32), (size, 1))
+    return {'smooth': smooth, 'plateau_6000m': plateau,
+            'nan_holed': holed, 'quadratic_sweep': sweep}
+
+
+def _host_otsu_mask(sh, dem, az, elev, psx, psy):
+    """The otsu shadow mask by the host's float64 chain: the hillshade
+    oracle, its histogram, the reference's threshold, ``>``."""
+    import numpy as np
+    hs = sh._host_hillshade_gdal(dem, az, elev, psx, psy)
+    threshold = sh._otsu_threshold_f64(np.bincount(hs.ravel(),
+                                                   minlength=256))
+    return hs, hs > threshold
+
+
+def phase_otsu_and_s2(torch, workdir, tile):
+    """The otsu hillshade on the card against the host float64 oracle at
+    full size, an otsu product run through the CLI, and a raw 10 m
+    Sentinel-2 band through the ingest's resample hook on the card."""
+    import numpy as np
+    oracle = _load_oracle()
+    from proteus_tpu_torch.io import hls as hls_io
+    from proteus_tpu_torch.io.cog import write_cog
+    from proteus_tpu_torch.models.dswx import shadow as sh
+    from proteus_tpu_torch.testing import synthetic
+
+    size = SIZE + 100  # the tile with its 50 px DEM margin
+    say(f'== phase 8: the otsu hillshade at {size}x{size} on four terrains '
+        f'vs the host float64 oracle; an otsu run; a 10 m band ingest')
+    device = torch.device(DEVICE)
+    geoms = {'smooth': (135.0, 45.0, -30.0),
+             'plateau_6000m': (277.3, 18.0, -30.0),
+             'nan_holed': (80.0, 70.0, 30.0),
+             'quadratic_sweep': (135.0, 45.0, -30.0)}
+    for name, dem in terrains(size).items():
+        az, elev, psy = geoms[name]
+        t0 = time.perf_counter()
+        want, want_mask = _host_otsu_mask(sh, dem, az, elev, 30.0, psy)
+        t_host = time.perf_counter() - t0
+        dem_d = torch.from_numpy(dem).to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, n_band = sh.compute_hillshade_exact(dem_d, az, elev, 30.0, psy,
+                                                 return_band=True)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        mask = sh.compute_otsu_shadow_layer_exact(dem_d, az, elev, 30.0, psy)
+        mism = int((got.cpu().numpy() != want).sum())
+        mask_mism = int((mask.cpu().numpy() != want_mask).sum())
+        say(f'  {name} (azimuth {az}, elevation {elev}, spacing 30 x {psy}):'
+            f' {mism} of {want.size} hillshade bytes and {mask_mism} otsu '
+            f'mask px differ from the host oracle; the host decided '
+            f'{n_band} px of the uncertainty band; device {t_dev:.3f} s '
+            f'(with the band), host oracle {t_host:.2f} s; not-shadow share '
+            f'{float(want_mask.mean()):.4f}')
+        if mism or mask_mism:
+            raise AssertionError(f'otsu hillshade, {name}: {mism} bytes, '
+                                 f'{mask_mism} mask px differ')
+        del dem_d, got, mask
+
+    # a product run with the otsu shadow through the CLI
+    launches = _run_cli(torch, 'o (default, otsu shadow)', [
+        _default_runconfig(workdir, tile, 'o', extra_processing={
+            'shadow_masking_algorithm': 'otsu'})], ('wtr_k1',))
+    got = _read_layers(os.path.join(workdir, 'output_o'))
+    md = synthetic.HLS_METADATA
+    gt = synthetic.geotransform()
+    _, shad_host = _host_otsu_mask(
+        sh, tile['dem_host'], float(md['MEAN_SUN_AZIMUTH_ANGLE']),
+        90 - float(md['MEAN_SUN_ZENITH_ANGLE']), gt[1], gt[5])
+    shad_host = shad_host[50:-50, 50:-50]
+    if not np.array_equal(got['SHAD'], shad_host.astype(np.uint8)):
+        raise AssertionError(
+            f'run o: SHAD differs from the host otsu chain in '
+            f'{int((got["SHAD"] != shad_host).sum())} px')
+    _hold_against_oracle(oracle, 'o', got, tile['ints'],
+                         tile['raw']['Fmask'], tile['invalid'], 'mask')
+    vals, counts = np.unique(got['SHAD'], return_counts=True)
+    say(f'run o: SHAD == the host otsu chain on the host-warped DEM (bit '
+        f'for bit), classes {dict(zip(vals.tolist(), counts.tolist()))}; '
+        f'the other layers == oracle')
+
+    # a raw 10 m band, 3 x SIZE px a side, through the ingest on the card
+    n = 3 * SIZE
+    rng = np.random.default_rng(20261019)
+    band = rng.integers(-200, 12000, (n, n), dtype=np.int16)
+    band[::97, ::89] = -9999
+    path = os.path.join(workdir, 'S2.T15SXS.B02.tif')
+    t0 = time.perf_counter()
+    write_cog(path, band, geotransform=(gt[0], 10.0, 0.0, gt[3], 0.0, -10.0),
+              epsg=synthetic.EPSG, nodata=-9999,
+              metadata=dict(synthetic.HLS_METADATA), overview_levels=())
+    t_write = time.perf_counter() - t0
+    image_dict = {}
+    t0 = time.perf_counter()
+    ok = hls_io.load_hls_band(path, image_dict, {}, {}, {}, 'blue', False,
+                              device=device)
+    t_load = time.perf_counter() - t0
+    if ok is not True:
+        raise AssertionError(f'10 m ingest: load_hls_band returned {ok!r}')
+    fill = band == -9999
+    sums = np.where(fill, 0, band).astype(np.int32).reshape(
+        SIZE, 3, SIZE, 3).sum(axis=(1, 3))
+    want = np.rint(sums / 9.0).astype(np.int16)
+    fill30 = fill.reshape(SIZE, 3, SIZE, 3).any(axis=(1, 3))
+    want = np.clip(np.where(fill30, 1, want), 1, None)
+    if not np.array_equal(image_dict['blue'], want):
+        raise AssertionError(
+            f'10 m ingest: the 30 m band differs from the numpy 3 x 3 mean '
+            f'in {int((image_dict["blue"] != want).sum())} px')
+    if not np.array_equal(image_dict['invalid_ind_array'], fill30):
+        raise AssertionError('10 m ingest: the invalid mask differs')
+    gt30 = image_dict['geotransform']
+    if (gt30[1], gt30[5]) != (30.0, -30.0) or image_dict['length'] != SIZE:
+        raise AssertionError(f'10 m ingest: grid {gt30}')
+    say(f'10 m ingest: a {n}x{n} int16 band (written in {t_write:.2f} s) '
+        f'read and resampled on {device} in {t_load:.2f} s == rint of the '
+        f'numpy float64 3 x 3 mean, {int(fill30.sum())} fill px kept, grid '
+        f'30 x -30 m')
+    return launches
+
+
 def _check_no_jax():
     loaded = sorted(m for m in sys.modules
                     if m == 'jax' or m.split('.')[0] == 'proteus_tpu')
@@ -1526,6 +1895,7 @@ def main(argv=None):
     stats.update(batched)
     stats.update(phase_spatial_vs_plain(torch, inputs, planes, fmasks,
                                         scaled, copy_bw))
+    stats.update(phase_null_vs_plain(torch, inputs, copy_bw))
     del inputs, planes, fmasks, scaled
     torch.cuda.empty_cache()
     os.environ['PROTEUS_TPU_TORCH_DEVICE'] = DEVICE
@@ -1538,6 +1908,9 @@ def main(argv=None):
         for name, n in campaigns.items():
             launches[name] = launches.get(name, 0) + n
         phase_step_sweep(torch, tile, workdir)
+        for phase in (phase_profile, phase_otsu_and_s2):
+            for name, n in phase(torch, workdir, tile).items():
+                launches[name] = launches.get(name, 0) + n
         if torch.cuda.device_count() > 1:
             phase_multi_gpu(torch, workdir)
         else:
@@ -1551,13 +1924,21 @@ def main(argv=None):
                 'wtr_k5': 'ops/pallas/wtr_kernel.py:483',
                 'wtr_k6': 'parallel/campaign.py:251',
                 'wtr_k6_spatial': 'parallel/campaign.py:394'}
+    kernels = [{'name': name, 'route': 'cuda',
+                'source': 'proteus_tpu_torch/ops/csrc/wtr_kernel.cu',
+                'replaces': f'proteus_tpu/{where}',
+                'launches': launches.get(name, 0), **stats[name]}
+               for name, where in replaces.items()]
+    kernels.append({'name': 'null', 'route': 'cuda',
+                    'source': 'proteus_tpu_torch/ops/csrc/null_kernel.cu',
+                    'replaces': 'tools/kernel_profile.py:72',
+                    'launches': launches.get('null', 0), **stats['null']})
+    for kernel in kernels:
+        if kernel['launches'] < 1:
+            raise AssertionError(f'{kernel["name"]} was launched no time on '
+                                 f'the main paths')
     say(nvidia_smi_line())
-    say(json.dumps({'kernels': [{
-        'name': name, 'route': 'cuda',
-        'source': 'proteus_tpu_torch/ops/csrc/wtr_kernel.cu',
-        'replaces': f'proteus_tpu/{where}',
-        'launches': launches.get(name, 0), **stats[name]}
-        for name, where in replaces.items()]}))
+    say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

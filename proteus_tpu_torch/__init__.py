@@ -17,10 +17,13 @@ code.
 - ``proteus_tpu_torch.native``   the native TIFF codec, built at first use
 - ``proteus_tpu_torch.geo``      CRS, coverage, warp-as-gather, polygons
 - ``proteus_tpu_torch.models``   the per-pixel chain, LAND, SHAD, host derive
-- ``proteus_tpu_torch.ops``      the fused CUDA kernels, their build
+- ``proteus_tpu_torch.ops``      the fused CUDA kernels and the null kernel,
+  their build
 - ``proteus_tpu_torch.parallel`` the campaign over the local GPUs
-- ``proteus_tpu_torch.runtime``  the product orchestrator and writer
-- ``proteus_tpu_torch.cli``      the ``dswx_hls`` and ``dswx_campaign`` entry
-  points
+- ``proteus_tpu_torch.runtime``  the product orchestrator and writer, the
+  product comparator, stage timers and ``torch.profiler`` tracing
+- ``proteus_tpu_torch.cli``      the ``dswx_hls``, ``dswx_compare`` and
+  ``dswx_campaign`` entry points
+- ``proteus_tpu_torch.tools``    the kernel-profile tool and the two benches
 - ``proteus_tpu_torch.testing``  the synthetic tile writers
 """

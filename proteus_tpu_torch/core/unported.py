@@ -6,9 +6,6 @@ no unported path ever runs silently as something else.
 
 INEXACT_THRESHOLDS = ('integer-band thresholds that are not exact rationals'
                       ' (ROADMAP.md Queue 1 item 17)')
-OTSU_SHADOW = "shadow_masking_algorithm 'otsu' (ROADMAP.md Queue 1 item 12)"
-RAW_S2_RESAMPLE = ('10 m / 20 m Sentinel-2 band ingest'
-                   ' (ROADMAP.md Queue 1 item 13)')
 MULTI_HOST = ('multi-host campaign dispatch, --hosts > 1'
               ' (ROADMAP.md Queue 1 item 20)')
 

@@ -75,11 +75,38 @@ def _harvest_metadata(metadata, dswx_metadata_dict):
     return True
 
 
+def _resample_raw_band(image, fill_value, src_res, geotransform, device):
+    """A raw 10 m or 20 m Sentinel-2 band area-resampled to the 30 m grid
+    with ``ops.resample.resample_to_30m`` on ``device`` (io/hls.py:117-129
+    of ``proteus_tpu``): the mean of the non-fill values, rounded half to
+    even, fill wherever a contributor was fill. Returns the 30 m band and
+    its geotransform."""
+    import torch
+
+    from proteus_tpu_torch.ops.resample import resample_to_30m
+    native_invalid = image == fill_value
+    on_device = torch.from_numpy(np.where(native_invalid, 0, image)) \
+        .to(device)
+    invalid_d = torch.from_numpy(native_invalid).to(device)
+    mean = resample_to_30m(on_device, src_res).cpu().numpy()
+    fill_frac = resample_to_30m(invalid_d.to(torch.float32),
+                                src_res).cpu().numpy()
+    out = np.rint(mean).astype(image.dtype)
+    out[fill_frac > 0] = image.dtype.type(fill_value)
+    sx = 1.0 if geotransform[1] > 0 else -1.0
+    sy = 1.0 if geotransform[5] > 0 else -1.0
+    return out, (geotransform[0], 30.0 * sx, geotransform[2],
+                 geotransform[3], geotransform[4], 30.0 * sy)
+
+
 def load_hls_band(filename, image_dict, offset_dict, scale_dict,
                   dswx_metadata_dict, band_name,
                   flag_offset_and_scale_inputs, flag_debug=False,
-                  band_suffix=None, reader_factory=None):
-    """Load one HLS band into image_dict; returns True/False/None."""
+                  band_suffix=None, reader_factory=None, device=None):
+    """Load one HLS band into image_dict; returns True/False/None.
+    ``device`` (a ``torch.device``) is where a raw 10 m / 20 m Sentinel-2
+    band is resampled to 30 m, and such a band raises ``ValueError``
+    without one; 30 m bands never leave the host here."""
     factory = reader_factory or _open_raster
     try:
         raster = factory(filename)
@@ -108,15 +135,18 @@ def load_hls_band(filename, image_dict, offset_dict, scale_dict,
 
         geotransform = r.geotransform()
 
-        # raw-Sentinel-2 ingest: bands distributed on 10 m / 20 m grids
-        # need the area resample to the 30 m product grid, which the port
-        # does not run yet (HLS v1/v2 products are always 30 m, so this
-        # never triggers for them)
+        # raw-Sentinel-2 ingest: bands distributed on 10 m / 20 m grids are
+        # area-resampled to the 30 m product grid on the run's device
+        # (HLS v1/v2 products are always 30 m, so this never triggers for
+        # them). A 30 m pixel with any fill contributor stays fill.
         src_res = abs(geotransform[1]) if geotransform is not None else 30.0
         if band_name != 'fmask' and src_res in (10.0, 20.0):
-            from proteus_tpu_torch.core.unported import (RAW_S2_RESAMPLE,
-                                                         not_ported)
-            raise not_ported(RAW_S2_RESAMPLE)
+            if device is None:
+                raise ValueError(
+                    f'{filename}: a {src_res:g} m band is resampled to 30 m '
+                    f'on a device; pass device= (the run\'s torch.device)')
+            image, geotransform = _resample_raw_band(
+                image, fill_value, int(src_res), geotransform, device)
 
         # fused native path: fill-mask accumulate (+ the negative clip
         # for reflectance bands) in ONE pass over the band instead of
@@ -219,7 +249,7 @@ def _open_raster(filename):
 
 def load_hls_product_v2(file_list, image_dict, offset_dict, scale_dict,
                         dswx_metadata_dict, flag_offset_and_scale_inputs,
-                        flag_debug=False):
+                        flag_debug=False, device=None):
     """Load an HLS v2 product from a list of per-band GeoTIFFs."""
     logger.info('loading HLS v.2.0 layers:')
     for key in C.HLS_BAND_KEYS:
@@ -240,7 +270,8 @@ def load_hls_product_v2(file_list, image_dict, offset_dict, scale_dict,
         ok = load_hls_band(filename, image_dict, offset_dict, scale_dict,
                            dswx_metadata_dict, key,
                            flag_offset_and_scale_inputs,
-                           flag_debug=flag_debug, band_suffix=band_name)
+                           flag_debug=flag_debug, band_suffix=band_name,
+                           device=device)
         if not ok:
             return False
     return True
@@ -248,7 +279,7 @@ def load_hls_product_v2(file_list, image_dict, offset_dict, scale_dict,
 
 def load_hls_product_v1(filename, image_dict, offset_dict, scale_dict,
                         dswx_metadata_dict, flag_offset_and_scale_inputs,
-                        flag_debug=False):
+                        flag_debug=False, device=None):
     """Load an HLS v1 product (single HDF4-EOS file with band
     subdatasets)."""
     if isinstance(filename, list):
@@ -269,7 +300,8 @@ def load_hls_product_v1(filename, image_dict, offset_dict, scale_dict,
             filename, image_dict, offset_dict, scale_dict,
             dswx_metadata_dict, key, flag_offset_and_scale_inputs,
             flag_debug=flag_debug,
-            reader_factory=lambda f: hdf4.Hdf4Raster(f, band_name))
+            reader_factory=lambda f: hdf4.Hdf4Raster(f, band_name),
+            device=device)
         if not ok:
             return ok
     return True

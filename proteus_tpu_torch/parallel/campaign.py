@@ -37,7 +37,6 @@ import numpy as np
 import torch
 
 from proteus_tpu_torch.core import constants as C
-from proteus_tpu_torch.core.unported import OTSU_SHADOW, not_ported
 from proteus_tpu_torch.models.dswx import masking
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops.wtr_kernel import BANDS, wtr_layers_batched
@@ -587,7 +586,8 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
                                         offset_dict, scale_dict,
                                         metadata,
                                         scaled and not device_scale,
-                                        flag_debug=flag_debug)
+                                        flag_debug=flag_debug,
+                                        device=device)
     if not ok:
         raise IOError(f'could not read tile {job.tile_id}')
     if device_scale:
@@ -621,8 +621,9 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
     if job.dem_file:
         def _prep_dem_shadow():
             from proteus_tpu_torch.geo.warp import warp_to_grid_device
-            from proteus_tpu_torch.models.dswx.shadow import \
-                compute_opera_shadow_layer_exact
+            from proteus_tpu_torch.models.dswx.shadow import (
+                compute_opera_shadow_layer_exact,
+                compute_otsu_shadow_layer_exact)
             from proteus_tpu_torch.runtime.orchestrator import _mean_angle
             with STAGE_TIMES.stage('read_dem_shadow'):
                 az = _mean_angle(
@@ -637,8 +638,6 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
                               if config is not None and
                               config.shadow_masking_algorithm else
                               'sun_local_inc_angle')
-                if shadow_alg == 'otsu':
-                    raise not_ported(OTSU_SHADOW)
                 m = C.DEM_MARGIN_IN_PIXELS
                 dkey = ('dem_warp', _fsig(job.dem_file), gt, proj,
                         length, width, m)
@@ -660,8 +659,15 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
                     move=lambda v, dev: _crop(v[0].to(dev)))
 
                 def _shadow():
-                    shad = compute_opera_shadow_layer_exact(
-                        dem_m, az, 90.0 - zen, min_slope, max_inc)
+                    if shadow_alg == 'otsu':
+                        # reference dswx_hls.py:4430-4436: hillshade over
+                        # the margined DEM + global-histogram Otsu cut
+                        shad = compute_otsu_shadow_layer_exact(
+                            dem_m, az, 90.0 - zen, pixel_spacing_x=gt[1],
+                            pixel_spacing_y=gt[5])
+                    else:
+                        shad = compute_opera_shadow_layer_exact(
+                            dem_m, az, 90.0 - zen, min_slope, max_inc)
                     shad_crop = shad[m:-m, m:-m].to(torch.uint8) \
                         .contiguous()
                     # the writer only needs the binary SHAD values: copy
@@ -961,9 +967,6 @@ class CampaignRunner:
 
     def run(self, jobs, metadata=None):
         """Process all jobs; returns campaign statistics."""
-        if self.config.shadow_masking_algorithm == 'otsu' \
-                and any(j.dem_file for j in jobs):
-            raise not_ported(OTSU_SHADOW)
         pending = [j for j in jobs
                    if self.manifest.status(j.tile_id) != 'done']
         logger.info(f'campaign: {len(jobs)} tiles, {len(pending)} pending,'

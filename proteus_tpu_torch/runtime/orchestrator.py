@@ -12,9 +12,13 @@ the fused CUDA kernels
 (K1 or K3, and K2 in 'cover' mode), on the CPU the plain PyTorch chain;
 all layers come back to the host once, after the chain.
 
-Paths the port does not run yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item: the 'otsu' shadow, integer-band thresholds that are
-not exact rationals and 10 m / 20 m Sentinel-2 ingest.
+With ``PROTEUS_TPU_TRACE_DIR`` set, the device chain and the transfer run
+under ``runtime.profiling.device_trace`` (a ``torch.profiler`` trace, as
+``proteus_tpu/runtime/orchestrator.py:502`` takes a ``jax.profiler`` one).
+
+The one path of this function the port does not run yet raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item: integer-band
+thresholds that are not exact rationals (``core/unported.py``).
 """
 
 import logging
@@ -27,7 +31,6 @@ import torch
 from proteus_tpu_torch.config.runconfig import parse_runconfig_file
 from proteus_tpu_torch.core import constants as C
 from proteus_tpu_torch.core.thresholds import HlsThresholds
-from proteus_tpu_torch.core.unported import OTSU_SHADOW, not_ported
 from proteus_tpu_torch.device import synchronize
 from proteus_tpu_torch.geo.coverage import check_ancillary_inputs
 from proteus_tpu_torch.geo.polygon import create_ocean_mask
@@ -40,13 +43,13 @@ from proteus_tpu_torch.models.dswx.chain import (DswxChainConfig,
                                                  coverage_counts)
 from proteus_tpu_torch.models.dswx.landcover import \
     create_landcover_mask_arrays
-from proteus_tpu_torch.models.dswx.shadow import \
-    compute_opera_shadow_layer_exact
+from proteus_tpu_torch.models.dswx.shadow import (
+    compute_opera_shadow_layer_exact, compute_otsu_shadow_layer_exact)
 from proteus_tpu_torch.ops.wtr_kernel import kernel_slices, wtr_layers
 from proteus_tpu_torch.runtime import ctables
 from proteus_tpu_torch.runtime import metadata as md_util
 from proteus_tpu_torch.runtime import product_writer as pw
-from proteus_tpu_torch.runtime.profiling import StageTimers
+from proteus_tpu_torch.runtime.profiling import StageTimers, device_trace
 from proteus_tpu_torch.version import VERSION as SOFTWARE_VERSION
 
 logger = logging.getLogger('dswx_hls')
@@ -177,10 +180,6 @@ def generate_dswx_layers(input_list,
         logger.error(msg)
         raise ValueError(msg)
 
-    # ---- paths not ported yet (ROADMAP.md) --------------------------------
-    if dem_file is not None and p['shadow_masking_algorithm'] == 'otsu':
-        raise not_ported(OTSU_SHADOW)
-
     # ---- parameter logging (reference dswx_hls.py:4864-4956) --------------
     ocean_unused = '' if p['apply_ocean_masking'] else ' (unused)'
     logger.info(f'PROTEUS-TPU software version: {SOFTWARE_VERSION}')
@@ -238,7 +237,7 @@ def generate_dswx_layers(input_list,
             success = hls_io.load_hls_product_v1(
                 input_list, hls_arrays, offset_dict, scale_dict,
                 dswx_metadata_dict, flag_offset_and_scale_inputs,
-                flag_debug=flag_debug)
+                flag_debug=flag_debug, device=device)
             if success:
                 version = '1.4'
         else:
@@ -247,7 +246,7 @@ def generate_dswx_layers(input_list,
             success = hls_io.load_hls_product_v2(
                 input_list, hls_arrays, offset_dict, scale_dict,
                 dswx_metadata_dict, flag_offset_and_scale_inputs,
-                flag_debug=flag_debug)
+                flag_debug=flag_debug, device=device)
             if not success:
                 logger.info(f'ERROR could not read file(s): {input_list}')
                 return False
@@ -346,10 +345,17 @@ def generate_dswx_layers(input_list,
                 margin_in_pixels=C.DEM_MARGIN_IN_PIXELS, device=device)
             synchronize(device)
         with timers.stage('terrain shadow'):
-            shadow_with_margin = compute_opera_shadow_layer_exact(
-                dem_with_margin, sun_azimuth_angle,
-                sun_elevation_angle, p['min_slope_angle'],
-                p['max_sun_local_inc_angle'])
+            if p['shadow_masking_algorithm'] == 'otsu':
+                shadow_with_margin = compute_otsu_shadow_layer_exact(
+                    dem_with_margin, sun_azimuth_angle,
+                    sun_elevation_angle,
+                    pixel_spacing_x=geotransform[1],
+                    pixel_spacing_y=geotransform[5])
+            else:
+                shadow_with_margin = compute_opera_shadow_layer_exact(
+                    dem_with_margin, sun_azimuth_angle,
+                    sun_elevation_angle, p['min_slope_angle'],
+                    p['max_sun_local_inc_angle'])
             synchronize(device)
         shadow_layer = _crop_margin(shadow_with_margin,
                                     C.DEM_MARGIN_IN_PIXELS) \
@@ -410,31 +416,34 @@ def generate_dswx_layers(input_list,
         where += ' (cuda kernels ' + ' + '.join(kernel_slices(
             blue.dtype == np.float32, p['mask_adjacent_to_cloud_mode'])) + ')'
     logger.info(f'running the fused DSWx device chain on {where}')
-    with timers.stage('device chain (compile+run)'):
-        def to_dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        bands = [to_dev(a) for a in (blue, green, red, nir, swir1, swir2)]
-        fmask_d = to_dev(fmask)
-        invalid_d = to_dev(invalid_array)
-        out = wtr_layers(*bands, fmask_d, invalid_d, chain_config,
-                         ocean=ocean_mask, shadow=shadow_layer,
-                         landcover=landcover_mask,
-                         compute_browse=output_browse_image is not None)
-        # coverage counts: a separate pass of plain reductions
-        # (orchestrator.py:477-495)
-        out.update(coverage_counts(
-            invalid_d, masking.compute_preliminary_cloud_layer(
-                fmask_d, p['mask_adjacent_to_cloud_mode']), ocean_mask))
-        del bands, fmask_d, invalid_d
-        synchronize(device)
-    with timers.stage('device->host transfer'):
-        out = {k: (v.item() if v.dim() == 0 else v.cpu().numpy())
-               for k, v in out.items()}
-        if dem is not None:
-            dem = dem.cpu().numpy()
-            shadow_layer = shadow_layer.cpu().numpy()
-        if landcover_mask is not None:
-            landcover_mask = landcover_mask.cpu().numpy()
+    with device_trace(os.environ.get('PROTEUS_TPU_TRACE_DIR')) as trace:
+        with timers.stage('device chain (compile+run)'), \
+                trace.annotate('device chain (compile+run)'):
+            def to_dev(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            bands = [to_dev(a) for a in (blue, green, red, nir, swir1, swir2)]
+            fmask_d = to_dev(fmask)
+            invalid_d = to_dev(invalid_array)
+            out = wtr_layers(*bands, fmask_d, invalid_d, chain_config,
+                             ocean=ocean_mask, shadow=shadow_layer,
+                             landcover=landcover_mask,
+                             compute_browse=output_browse_image is not None)
+            # coverage counts: a separate pass of plain reductions
+            # (orchestrator.py:477-495)
+            out.update(coverage_counts(
+                invalid_d, masking.compute_preliminary_cloud_layer(
+                    fmask_d, p['mask_adjacent_to_cloud_mode']), ocean_mask))
+            del bands, fmask_d, invalid_d
+            synchronize(device)
+        with timers.stage('device->host transfer'), \
+                trace.annotate('device->host transfer'):
+            out = {k: (v.item() if v.dim() == 0 else v.cpu().numpy())
+                   for k, v in out.items()}
+            if dem is not None:
+                dem = dem.cpu().numpy()
+                shadow_layer = shadow_layer.cpu().numpy()
+            if landcover_mask is not None:
+                landcover_mask = landcover_mask.cpu().numpy()
 
     # ---- coverage statistics -> metadata ------------------------------------
     total_number_of_pixels = length * width

@@ -20,14 +20,14 @@ from proteus_tpu.models.dswx import host_derive as jderive
 from proteus_tpu.models.dswx.chain import DswxChainConfig as JaxConfig
 from proteus_tpu.parallel import campaign as jcampaign
 from proteus_tpu.parallel.mesh import make_tile_mesh as jax_mesh
-from proteus_tpu.runtime.compare import compare_dswx_hls_products
 from proteus_tpu_torch.cli import dswx_campaign as tcli
-from proteus_tpu_torch.core.unported import MULTI_HOST, OTSU_SHADOW
+from proteus_tpu_torch.core import unported
 from proteus_tpu_torch.models.dswx import host_derive as tderive
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops import wtr_kernel
 from proteus_tpu_torch.parallel import campaign as tcampaign
 from proteus_tpu_torch.parallel.mesh import make_tile_mesh
+from proteus_tpu_torch.runtime.compare import compare_dswx_hls_products
 from test_torch_batched import KINDS, T, batch_inputs
 
 torch.set_num_threads(1)
@@ -373,16 +373,37 @@ def test_tiles_per_device_default(monkeypatch):
 
 @pytest.mark.parametrize('argv,match', [
     (['--hosts', '2'], 'multi-host'),
-    (['--shadow-masking-algorithm', 'otsu', '--dem', 'dem.tif'], 'otsu'),
+    (['--hosts', '3', '--shadow-masking-algorithm', 'otsu'], 'item 20'),
 ])
 def test_cli_unported_raise(tiles, tmp_path, monkeypatch, argv, match):
     _, dirs, anc = tiles
     monkeypatch.setenv('PROTEUS_TPU_TORCH_DEVICE', 'cpu')
-    argv = [a if a != 'dem.tif' else anc['dem_file'] for a in argv]
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(dirs[:1] + ['-o', str(tmp_path / 'o')] + argv)
     assert not glob.glob(str(tmp_path / 'o' / '*' / '*.tif'))
-    assert MULTI_HOST and OTSU_SHADOW
+    # what is left unported: two paths, each naming its ROADMAP item
+    names = sorted(n for n in vars(unported) if n.isupper())
+    assert names == ['INEXACT_THRESHOLDS', 'MULTI_HOST']
+
+
+def test_cli_runs_the_otsu_shadow(tiles, tmp_path, monkeypatch):
+    """--shadow-masking-algorithm otsu with a DEM no longer raises: the
+    campaign writes SHAD, and it differs from the default algorithm's
+    (tests/test_torch_otsu.py holds it against the single-tile runs)."""
+    _, dirs, anc = tiles
+    monkeypatch.setenv('PROTEUS_TPU_TORCH_DEVICE', 'cpu')
+    shads = {}
+    for alg in ('otsu', 'sun_local_inc_angle'):
+        out = str(tmp_path / alg)
+        tcampaign.ANCILLARY_CACHE.clear()
+        tcli.main(dirs[:1] + ['-o', out, '--dem', anc['dem_file'],
+                              '--shadow-masking-algorithm', alg])
+        files = glob.glob(os.path.join(out, '*', '*_SHAD.tif'))
+        assert len(files) == 1
+        with TiffReader(files[0]) as r:
+            shads[alg] = r.read()
+    assert set(np.unique(shads['otsu']).tolist()) <= {0, 1}
+    assert (shads['otsu'] != shads['sun_local_inc_angle']).any()
 
 
 _CLI_SCRIPT = r'''

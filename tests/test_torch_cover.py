@@ -30,7 +30,6 @@ from proteus_tpu.models.dswx import chain as jchain
 from proteus_tpu.models.dswx import masking as jmasking
 from proteus_tpu.ops import morphology as jmorph
 from proteus_tpu.ops.pallas.wtr_kernel import make_wtr_kernel
-from proteus_tpu.runtime.compare import compare_dswx_hls_products
 from proteus_tpu.runtime.orchestrator import \
     generate_dswx_layers as jax_generate
 from proteus_tpu_torch.geo.polygon import create_ocean_mask
@@ -38,6 +37,7 @@ from proteus_tpu_torch.models.dswx import chain as tchain
 from proteus_tpu_torch.models.dswx import masking as tmasking
 from proteus_tpu_torch.ops import morphology as tmorph
 from proteus_tpu_torch.ops import wtr_kernel
+from proteus_tpu_torch.runtime.compare import compare_dswx_hls_products
 from proteus_tpu_torch.runtime.orchestrator import generate_dswx_layers
 from test_torch_chain import T, assert_same, make_inputs
 from test_torch_e2e import LAYERS, _inputs, _outputs

@@ -16,10 +16,10 @@ import torch
 import synthetic
 from proteus_tpu.io.cog import write_cog
 from proteus_tpu.io.tiff import TiffReader
-from proteus_tpu.runtime.compare import compare_dswx_hls_products
 from proteus_tpu.runtime.orchestrator import \
     generate_dswx_layers as jax_generate
 from proteus_tpu_torch.device import resolve_device
+from proteus_tpu_torch.runtime.compare import compare_dswx_hls_products
 from proteus_tpu_torch.runtime.orchestrator import generate_dswx_layers
 
 torch.set_num_threads(1)
@@ -108,27 +108,60 @@ def test_layers_are_not_trivial(products):
 
 
 @pytest.mark.parametrize('change,match', [
-    (dict(shadow_masking_algorithm='otsu'), 'otsu'),
+    (dict(hls_thresholds={'wigt': 0.12345678}), 'item 17'),
+    (dict(hls_thresholds={'lcmask_nir': 0.1 + 0.2}), 'item 17'),
 ])
 def test_unported_paths_raise(products, tmp_path, change, match):
+    """Integer-band thresholds that are not exact rationals still raise,
+    naming their ROADMAP item."""
     _, inputs, _ = products
+    if 'hls_thresholds' in change:
+        from proteus_tpu_torch.core.thresholds import HlsThresholds
+        defaults = HlsThresholds()
+        values = {k: getattr(defaults, k)
+                  for k in defaults.__dataclass_fields__}
+        values.update(change['hls_thresholds'])
+        change = dict(hls_thresholds=values)
     with pytest.raises(NotImplementedError, match=match):
         generate_dswx_layers(**inputs, **_outputs(str(tmp_path)), **change,
                              device=CPU)
     assert not os.path.exists(os.path.join(str(tmp_path), 'B01_WTR.tif'))
 
 
-def test_raw_sentinel2_10m_bands_raise(tmp_path):
+@pytest.mark.parametrize('change', [
+    dict(shadow_masking_algorithm='otsu'),
+    dict(shadow_masking_algorithm='otsu', mask_adjacent_to_cloud_mode='cover'),
+])
+def test_ported_paths_no_longer_raise(products, tmp_path, change):
+    """The otsu shadow runs (tests/test_torch_otsu.py holds it against
+    proteus_tpu); its SHAD differs from the default algorithm's."""
+    _, inputs, dirs = products
+    out = str(tmp_path)
+    assert generate_dswx_layers(**inputs, **_outputs(out), **change,
+                                device=CPU) is True
+    with TiffReader(os.path.join(out, 'B08_SHAD.tif')) as r:
+        shad = r.read()
+    with TiffReader(os.path.join(dirs['torch'], 'B08_SHAD.tif')) as r:
+        assert (r.read() != shad).any()
+
+
+def test_raw_sentinel2_10m_bands_ingest(tmp_path):
+    """A 10 m blue band (3x the tile's shape) no longer raises: it is
+    resampled to the 30 m grid and the run writes its product
+    (tests/test_torch_resample.py holds the values against proteus_tpu)."""
     files, bands = synthetic.make_hls_v2_dataset(str(tmp_path / 'in'),
                                                  size=32)
     gt = (synthetic.X0, 10.0, 0.0, synthetic.Y0, 0.0, -10.0)
-    write_cog(files[0], bands['B02'], geotransform=gt, epsg=synthetic.EPSG,
+    write_cog(files[0], np.repeat(np.repeat(bands['B02'], 3, 0), 3, 1),
+              geotransform=gt, epsg=synthetic.EPSG,
               nodata=-9999, metadata=dict(synthetic.HLS_METADATA),
               overview_levels=())
-    with pytest.raises(NotImplementedError, match='Sentinel-2'):
-        generate_dswx_layers(files, output_interpreted_band=str(
-            tmp_path / 'wtr.tif'), check_ancillary_inputs_coverage=False,
-            apply_ocean_masking=False, device=CPU)
+    out = str(tmp_path / 'wtr.tif')
+    assert generate_dswx_layers(files, output_interpreted_band=out,
+                                check_ancillary_inputs_coverage=False,
+                                apply_ocean_masking=False, device=CPU) is True
+    with TiffReader(out) as r:
+        assert r.read().shape == (32, 32)
 
 
 def test_generate_requires_a_device(products, tmp_path):

@@ -21,6 +21,7 @@ from proteus_tpu.geo.crs import transform_points as jax_transform
 from proteus_tpu.io import hls as jhls
 from proteus_tpu.io.cog import write_cog as jax_write_cog
 from proteus_tpu.io.tiff import TiffReader as JaxTiffReader
+from proteus_tpu.runtime import compare as jcompare
 from proteus_tpu_torch import native as tnative
 from proteus_tpu_torch.config.runconfig import parse_runconfig_file
 from proteus_tpu_torch.geo.crs import CRS, transform_points
@@ -28,6 +29,8 @@ from proteus_tpu_torch.io import hls as thls
 from proteus_tpu_torch.io.cog import write_cog
 from proteus_tpu_torch.io.tiff import TiffReader
 from proteus_tpu_torch.native import build as native_build
+from proteus_tpu_torch.cli import dswx_compare as tcompare_cli
+from proteus_tpu_torch.runtime import compare as tcompare
 from proteus_tpu_torch.testing import synthetic as tsynthetic
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,6 +58,12 @@ def test_port_imports_neither_jax_nor_proteus_tpu():
     chip_smoke.py: no import of jax or of proteus_tpu(.*)."""
     files = _port_sources()
     assert len(files) > 60
+    scanned = {os.path.relpath(f, REPO) for f in files}
+    for tool in ('kernel_profile', 'bench', 'bench_e2e'):
+        assert f'proteus_tpu_torch/tools/{tool}.py' in scanned
+    assert {'proteus_tpu_torch/runtime/compare.py',
+            'proteus_tpu_torch/cli/dswx_compare.py',
+            'proteus_tpu_torch/ops/null_kernel.py'} <= scanned
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)
            if m.split('.')[0] in ('jax', 'jaxlib', 'proteus_tpu')]
@@ -259,3 +268,92 @@ def test_synthetic_copy_writes_identical_files(tmp_path, size, seed):
     assert tsynthetic.geotransform() == synthetic.geotransform()
     assert tsynthetic.EPSG == synthetic.EPSG
     assert tsynthetic.HLS_METADATA == synthetic.HLS_METADATA
+
+
+# ---- dswx_compare ----------------------------------------------------------
+
+def _product(path, array, gt=None, **metadata):
+    md = {'PRODUCT_ID': 'p', 'PROCESSING_DATETIME': '2026-01-01T00:00:00',
+          'LICENSE': 'one', **metadata}
+    write_cog(path, array, geotransform=gt or tsynthetic.geotransform(),
+              epsg=tsynthetic.EPSG, nodata=255, metadata=md,
+              overview_levels=())
+    return path
+
+
+def _compare_cases(root):
+    """(file 1, file 2, verdict) by name: equal and differing products."""
+    rng = np.random.default_rng(9)
+    base = rng.integers(0, 3, (40, 50)).astype(np.uint8)
+    other = base.copy()
+    other[17, 23] ^= 1
+    f32 = rng.normal(0, 1, (40, 50)).astype(np.float32)
+    f32[3, 4] = np.nan
+    gt2 = list(tsynthetic.geotransform())
+    gt2[0] += 30.0
+
+    def p(name, *a, **k):
+        return _product(os.path.join(root, name + '.tif'), *a, **k)
+    same = p('same', base)
+    return {
+        'identical': (same, p('identical', base), True),
+        'itself': (same, same, True),
+        'volatile-metadata': (same, p('volatile', base,
+                                      PROCESSING_DATETIME='2027'), True),
+        'license-ignored': (same, p('license', base, LICENSE='two'), True),
+        'one-pixel': (same, p('pixel', other), False),
+        'shape': (same, p('shape', base[:, :49]), False),
+        'geotransform': (same, p('gt', base, gt=tuple(gt2)), False),
+        'metadata-value': (same, p('md', base, PRODUCT_ID='q'), False),
+        'metadata-extra-key': (same, p('extra', base, EXTRA='1'), False),
+        'bands': (same, p('bands', np.dstack([base, base])), False),
+        'missing-file': (same, os.path.join(root, 'absent.tif'), False),
+        'float-nan-equal': (p('f1', f32), p('f2', f32.copy()), True),
+        'float-within-tolerance': (p('f3', f32), p('f4', f32
+                                                   + np.float32(1e-7)), True),
+        'float-beyond-tolerance': (p('f5', f32), p('f6', f32
+                                                   + np.float32(1e-3)),
+                                   False),
+    }
+
+
+_COMPARE_NAMES = ['identical', 'itself', 'volatile-metadata',
+                  'license-ignored', 'one-pixel', 'shape', 'geotransform',
+                  'metadata-value', 'metadata-extra-key', 'bands',
+                  'missing-file', 'float-nan-equal', 'float-within-tolerance',
+                  'float-beyond-tolerance']
+
+
+@pytest.mark.parametrize('name', _COMPARE_NAMES)
+def test_compare_copy_agrees_with_the_original(tmp_path, capsys, name):
+    cases = _compare_cases(str(tmp_path))
+    assert sorted(cases) == sorted(_COMPARE_NAMES)
+    f1, f2, verdict = cases[name]
+    want = jcompare.compare_dswx_hls_products(f1, f2)
+    want_out = capsys.readouterr().out
+    got = tcompare.compare_dswx_hls_products(f1, f2)
+    got_out = capsys.readouterr().out
+    assert got is want is verdict
+    assert got_out == want_out
+    assert tcompare_cli.main([f1, f2]) is verdict
+
+
+def test_compare_cli_as_a_module(tmp_path):
+    """``python -m proteus_tpu_torch.cli.dswx_compare f1 f2`` with neither
+    jax nor proteus_tpu loaded."""
+    import subprocess
+    import sys
+    cases = _compare_cases(str(tmp_path))
+    f1, f2, _ = cases['one-pixel']
+    script = ('import sys; from proteus_tpu_torch.cli.dswx_compare import '
+              'main; ok = main(sys.argv[1:]); '
+              'bad = [m for m in sys.modules if m.split(".")[0] in '
+              '("jax", "proteus_tpu")]; assert not bad, bad; '
+              'print("VERDICT", ok)')
+    for files, verdict in (((f1, f1), True), ((f1, f2), False)):
+        proc = subprocess.run([sys.executable, '-c', script, *files],
+                              cwd=REPO, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        assert f'VERDICT {verdict}' in proc.stdout
+        assert '[FAIL]' in proc.stdout or verdict

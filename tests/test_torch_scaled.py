@@ -26,13 +26,13 @@ from proteus_tpu.models.dswx import chain as jchain
 from proteus_tpu.models.dswx import diagnostics as jdiag
 from proteus_tpu.models.dswx import masking as jmasking
 from proteus_tpu.ops.pallas.wtr_kernel import make_wtr_kernel
-from proteus_tpu.runtime.compare import compare_dswx_hls_products
 from proteus_tpu.runtime.orchestrator import \
     generate_dswx_layers as jax_generate
 from proteus_tpu_torch.models.dswx import chain as tchain
 from proteus_tpu_torch.models.dswx import diagnostics as tdiag
 from proteus_tpu_torch.models.dswx import masking as tmasking
 from proteus_tpu_torch.ops import wtr_kernel
+from proteus_tpu_torch.runtime.compare import compare_dswx_hls_products
 from proteus_tpu_torch.runtime.orchestrator import generate_dswx_layers
 from test_torch_chain import T, assert_same, make_inputs
 from test_torch_e2e import LAYERS, _inputs, _outputs
