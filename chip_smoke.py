@@ -283,6 +283,66 @@ def raw_scaled_tile(rng, shape, thresholds, scales, offsets):
     return raw
 
 
+# the band (its index in blue .. swir2) that each scalar threshold tests
+BAND_TESTS = (('pswt_1_swir1', 4), ('pswt_1_nir', 3), ('pswt_2_blue', 0),
+              ('pswt_2_swir1', 4), ('pswt_2_swir2', 5), ('pswt_2_nir', 3),
+              ('lcmask_nir', 3))
+
+
+def boundary_int16_bands(rng, shape, thresholds):
+    """int16 bands pushed onto the decision boundaries of ``thresholds``
+    (after tests/test_torch_inexact.py::boundary_bands): in a tenth of the
+    pixels each, the operands of one ratio test with num = floor(t * den)
+    - 1 .. + 2 (denominators that are multiples of 30, so that quotients of
+    small rationals are exact and the division's rounding decides), zero
+    denominators (x/0 and 0/0), one band on floor(t) - 1 .. floor(t) + 2 of
+    its scalar threshold, and swir2 chosen so that 4 * AWEsh lies on
+    floor(4 t) - 1 .. floor(4 t) + 2; the rest random with int16 extremes.
+    Returns blue, green, red, nir, swir1, swir2."""
+    import numpy as np
+    bands = []
+    for _ in range(6):
+        b = rng.integers(-2000, 18000, shape)
+        extreme = rng.random(shape) < 0.1
+        bands.append(np.where(extreme, rng.integers(-32768, 32768, shape),
+                              b))
+    kind = rng.integers(0, 10, shape)
+    jitter = rng.integers(-1, 3, shape)
+    den = 30 * rng.integers(1, 400, shape)
+    for k, (name, _) in enumerate(RATIO_TESTS):
+        t = np.float64(getattr(thresholds, name))
+        if not np.isfinite(t) or abs(t) > 1:
+            continue
+        # a + c = den and a - c = num (or num + 1 where the parities differ)
+        num = np.floor(t * den).astype(np.int64) + jitter
+        num = num + ((den + num) & 1)
+        a, c = (3, 2) if name == 'pswt_1_ndvi' else (1, 4)
+        sel = kind == k
+        bands[a] = np.where(sel, (den + num) // 2, bands[a])
+        bands[c] = np.where(sel, (den - num) // 2, bands[c])
+    sel = kind == 4
+    bands[4] = np.where(sel, -bands[1], bands[4])
+    bands[2] = np.where(sel, -bands[3], bands[2])
+    bands[1] = np.where(sel & (jitter == 0), 0, bands[1])
+    bands[4] = np.where(sel & (jitter == 0), 0, bands[4])
+    which = rng.integers(0, len(BAND_TESTS), shape)
+    for k, (name, band) in enumerate(BAND_TESTS):
+        t = np.float64(getattr(thresholds, name))
+        if np.isfinite(t):
+            sel = (kind == 5) & (which == k)
+            bands[band] = np.where(sel, int(np.floor(t)) + jitter,
+                                   bands[band])
+    bands = [np.clip(b, -32768, 32767).astype(np.int16) for b in bands]
+    t = np.float64(thresholds.awgt)
+    if np.isfinite(t):
+        b, g = (bands[k].astype(np.int64) for k in (0, 1))
+        mbsrn = (bands[3] + bands[4]).astype(np.int64)  # wraps in int16
+        s2 = 4 * b + 10 * g - 6 * mbsrn - (int(np.floor(4 * t)) + jitter)
+        sel = ((kind == 6) | (kind == 7)) & (np.abs(s2) < 32768)
+        bands[5] = np.where(sel, s2, bands[5]).astype(np.int16)
+    return bands
+
+
 def structured_cover_fmask(shape):
     """An fmask for 'cover' mode (after tests/test_pallas_kernel.py:99-123):
     adjacent-to-cloud nearly everywhere, snow stripes and blobs that cross
@@ -322,13 +382,18 @@ def cover_tile_fmask(fmask):
 def _time_ms(torch, fn, inputs, repeats, cycles=4):
     """Median over ``repeats`` of the per-call device time: CUDA events
     around a batch that cycles ``cycles`` times through the input sets
-    (each larger than the 50 MB L2), divided by the batch size."""
+    (each larger than the 50 MB L2), divided by the batch size. The card
+    spins for about 10 ms before the first event while the host queues the
+    batch: a wrapper's host time a call (allocating nine planes, the
+    checks) is as long as a kernel of 0.1 ms, and without the hold the
+    events would time the host."""
     fn(*inputs[0])  # warm-up
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
         start.record()
         for _ in range(cycles):
             for args in inputs:
@@ -422,6 +487,9 @@ def phase_kernel_vs_plain(torch):
         f' {n_runs} runs, the cover ones on a random and a structured '
         f'fmask; boundary-pushed float32 bands); max |err| {errors}')
 
+    _odd_shapes_vs_plain(torch, bands, planes, fmasks)
+    _inexact_vs_plain(torch, rng, planes, fmasks)
+
     # timing at the main path's flags, over varied inputs
     inputs = {'int16': [(*bands_i16, planes['fmask'], planes['invalid'])],
               'float32': [(*bands['float32'], planes['fmask'],
@@ -467,8 +535,18 @@ def phase_kernel_vs_plain(torch):
                        **_bound(name, FUNCTION_BYTES_PER_PX[name] * SIZE
                                 * SIZE)}
 
+    # K1 with a ratio threshold that is no exact rational: the float64
+    # ratio tests
+    from proteus_tpu_torch.core.thresholds import HlsThresholds
+    cfg_f64 = DswxChainConfig(thresholds=HlsThresholds(**INEXACT_THRESHOLDS))
+    f64_ms = [_time_ms(torch, lambda *a: wtr_kernel.wtr_layers(
+        *a, cfg_f64, **main_kw), inputs['int16'], 10) for _ in range(2)]
+    say(f"wtr_k1 with inexact thresholds (int16, 'mask', float64 ratio "
+        f'tests): {statistics.median(f64_ms):.4f} ms/tile (runs {f64_ms}) '
+        f'against {stats["wtr_k1"]["ms"]:.4f} with exact rationals')
+
     # K2's second pass alone, on the state bytes of its first
-    out, state, flags, _ = wtr_kernel.pixel_pass(
+    out, state, flags, _, _ = wtr_kernel.pixel_pass(
         *[t.unsqueeze(0) for t in inputs['int16'][0]], configs['cover'],
         **{k: v.unsqueeze(0) for k, v in main_kw.items()}, batched=False)
     pass_b = [_time_ms(torch, lambda: wtr_kernel.launch_k2(state, out, flags),
@@ -477,6 +555,249 @@ def phase_kernel_vs_plain(torch):
         f'{statistics.median(pass_b):.4f} ms/tile (runs {pass_b}); '
         f'device copy {copy_bw / 1e9:.1f} GB/s')
     return stats, inputs, planes, fmasks, copy_bw
+
+
+def _launched(torch, *planes, config, scales=None, offsets=None, ocean=None,
+              shadow=None, landcover=None, compute_browse=True,
+              minimal=False, window=None):
+    """``wtr_layers`` (2-D planes: the bands, fmask, invalid) or
+    ``wtr_layers_batched`` (stacks) on the card through the wrappers' own
+    launch: the layers, and whether the per-pixel launch took its 8-pixel
+    body."""
+    from proteus_tpu_torch.ops import wtr_kernel
+    single = planes[0].dim() == 2
+
+    def lift(t):
+        return t.unsqueeze(0) if single and t is not None else t
+    out, vectorized = wtr_kernel._launch(
+        [lift(b) for b in planes[:6]], lift(planes[6]), lift(planes[7]),
+        config, scales, offsets, lift(ocean), lift(shadow), lift(landcover),
+        compute_browse, minimal, batched=not single, window=window)
+    if single:
+        out = {name: t[0] for name, t in out.items()}
+    return out, vectorized
+
+
+def _shifted(torch, t):
+    """The same values, one element into a fresh buffer (no vector
+    alignment)."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _odd_shapes_vs_plain(torch, bands, planes, fmasks):
+    """The per-pixel pass off its vector path and K2 off its tile grid,
+    each against the plain twin, bit for bit: every plane starting one
+    element into its buffer (no pointer aligned to its vector: the
+    one-pixel body takes everything), an aligned 1001 x 1003 crop (n % 8 =
+    3: the vector body and a one-pixel tail; neither side a multiple of
+    K2's 94 px tile), a [2, 1001, 1003] stack with per-tile scales (H * W is
+    no multiple of 8: a group of 8 would straddle two tiles, so the
+    one-pixel body again), and 'cover' windows whose first row is no
+    multiple of the tile. Each case checks which body the launcher took."""
+    from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
+    from proteus_tpu_torch.ops import wtr_kernel
+
+    def shifted(t):
+        return _shifted(torch, t)
+
+    # two odd sides (1001 x 1003 at the full size): n % 8 is odd
+    ch = (min(1001, SIZE) - 1) | 1
+    cw = ch + 2 if ch + 2 <= SIZE else ch - 2
+
+    def crop(t):
+        return t[:ch, :cw].contiguous()
+
+    n_cases = err = 0
+
+    def check(what, vectorized, launched, want):
+        nonlocal n_cases, err
+        got, ran = launched
+        torch.cuda.synchronize()
+        err = max(err, _compare(torch, got, want, what))
+        if ran is not vectorized:
+            raise AssertionError(f'{what}: the 8-pixel body ran: {ran}, '
+                                 f'expected {vectorized}')
+        n_cases += 1
+
+    for dtype, mode, browse in (('int16', 'mask', True),
+                                ('float32', 'ignore', False),
+                                ('int16', 'cover', True),
+                                ('float32', 'cover', False)):
+        cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
+        fmask = fmasks['structured' if mode == 'cover' else 'random']
+        args = (*bands[dtype], fmask, planes['invalid'])
+        kw = {k: planes[k] for k in ('ocean', 'shadow', 'landcover')}
+        for what, move, vectorized in (
+                ('aligned', lambda t: t, True),
+                ('every plane 1 element into its buffer', shifted, False),
+                (f'{ch} x {cw} (n % 8 = {ch * cw % 8})', crop, True)):
+            a = [move(t) for t in args]
+            k = {name: move(t) for name, t in kw.items()}
+            check(f'bands={dtype} mode={mode}, {what}', vectorized,
+                  _launched(torch, *a, config=cfg, **k,
+                            compute_browse=browse),
+                  wtr_kernel.wtr_layers_plain(*a, cfg, **k,
+                                              compute_browse=browse))
+    # K4 on a stack whose tiles are no multiple of 8 px, K5's packed planes
+    scales = torch.tensor([[1e-4] * 6, [2e-4] * 6], device=DEVICE)
+    offsets = torch.tensor([[0.0] * 6, [-0.1] * 6], device=DEVICE)
+    for mode in ('mask', 'cover'):
+        cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
+        a = [torch.stack([crop(t), crop(torch.roll(t, 5, 0))])
+             for t in (*bands['int16'], fmasks['structured'],
+                       planes['invalid'])]
+        kw = dict(scales=scales, offsets=offsets, minimal=True,
+                  landcover=torch.stack([crop(planes['landcover'])] * 2))
+        check(f'device scale, B=2 x {ch} x {cw}, mode={mode}', False,
+              _launched(torch, *a, config=cfg, **kw),
+              wtr_kernel.wtr_layers_batched_plain(*a, cfg, **kw))
+        # the same stack without the scales: the vector body, whose groups
+        # of 8 may cross from tile 0 into tile 1
+        del kw['scales'], kw['offsets']
+        check(f'int16, B=2 x {ch} x {cw}, mode={mode}', True,
+              _launched(torch, *a, config=cfg, **kw),
+              wtr_kernel.wtr_layers_batched_plain(*a, cfg, **kw))
+    # 'cover' windows off the tile grid (the one-pixel body, but for the
+    # window of every row, which is the unwindowed launch)
+    cfg = DswxChainConfig(mask_adjacent_to_cloud_mode='cover')
+    a = [torch.stack([crop(t)]) for t in (*bands['int16'],
+                                          fmasks['structured'],
+                                          planes['invalid'])]
+    for window in ((17, 500), (123, 94), (95, ch - 95), (0, ch),
+                   (ch - 1, 1)):
+        for minimal in (False, True):
+            kw = dict(window=window, minimal=minimal)
+            check(f"int16 'cover' window {window} of {ch} rows, "
+                  f'minimal={minimal}', window == (0, ch),
+                  _launched(torch, *a, config=cfg, **kw),
+                  wtr_kernel.wtr_layers_batched_plain(*a, cfg, **kw))
+    say(f'off the vector path and off the tile grid: {n_cases} cases == '
+        f'plain twin, bit for bit (unaligned planes and per-tile scales on '
+        f'tiles of {ch} x {cw} through the one-pixel body, n % 8 = '
+        f'{ch * cw % 8} tails, '
+        f"'cover' at sizes and windows that are no multiple of the 94 px "
+        f'tile); max |err| {err}')
+
+
+# thresholds with no exact rational within the kernels' int32 bounds
+# (core/thresholds.py), one in every field
+INEXACT_THRESHOLDS = dict(
+    wigt=0.12345678, awgt=12.3456789, pswt_1_mndwi=-0.440000001,
+    pswt_1_nir=1500.314159, pswt_1_swir1=900.00001234,
+    pswt_1_ndvi=0.700000001, pswt_2_mndwi=-0.500000001,
+    pswt_2_blue=1000.0000014, pswt_2_nir=2500.000017,
+    pswt_2_swir1=2999.999999, pswt_2_swir2=1000.1234567,
+    lcmask_nir=1200.3000001)
+
+
+def _inexact_threshold_sets():
+    """name -> (thresholds, whether a ratio threshold is inexact: the
+    float64 ratio tests)."""
+    import math
+    inf = math.inf
+    return {
+        'every field inexact': (INEXACT_THRESHOLDS, True),
+        # the float64 next to an exact rational: a quotient that is that
+        # rational lies one ULP from the threshold
+        'one ULP from a rational': (dict(
+            wigt=math.nextafter(1 / 3, inf),
+            awgt=math.nextafter(0.25, -inf),
+            pswt_1_mndwi=math.nextafter(-1 / 3, -inf),
+            pswt_1_nir=math.nextafter(1500.0, inf),
+            pswt_1_swir1=math.nextafter(900.0, -inf),
+            pswt_1_ndvi=math.nextafter(2 / 3, -inf),
+            pswt_2_mndwi=math.nextafter(-0.5, inf),
+            pswt_2_blue=math.nextafter(1000.0, inf),
+            pswt_2_nir=math.nextafter(2500.0, -inf),
+            pswt_2_swir1=math.nextafter(3000.0, inf),
+            pswt_2_swir2=math.nextafter(1000.0, -inf),
+            lcmask_nir=math.nextafter(1200.0, inf)), True),
+        # one inexact ratio beside exact ones, and tests that never or
+        # always hold
+        'one ratio, nan and infinities': (dict(
+            pswt_1_ndvi=0.700000001, awgt=inf, pswt_1_nir=-inf,
+            pswt_2_blue=inf, lcmask_nir=math.nan), True),
+        # the integer ratio tests with bounds from float64 thresholds
+        'scalars only': (dict(
+            awgt=math.e / 10, pswt_1_nir=1500.314159, pswt_1_swir1=900.00001234,
+            pswt_2_swir2=1000 + 1 / math.e, lcmask_nir=0.1 + 0.2), False),
+    }
+
+
+def _inexact_vs_plain(torch, rng, planes, fmasks):
+    """int16-band thresholds that are no exact rationals, on the card: the
+    kernels (the float64 ratio tests of the per-pixel pass in its 8-pixel,
+    one-pixel and windowed bodies; the integer bounds from float64
+    thresholds) against the plain chain, bit for bit, on bands pushed onto
+    the decision boundaries; on the upper half of the tile's planes (the
+    host makes a set of bands for each set of thresholds)."""
+    from proteus_tpu_torch.core.thresholds import (ExactThresholds,
+                                                   HlsThresholds)
+    from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
+    from proteus_tpu_torch.ops import wtr_kernel
+
+    n_cases = err = 0
+    height = SIZE // 2
+    rows = (height // 4 + 3, height // 2)
+    planes = {name: t[:height] for name, t in planes.items()}
+    fmasks = {name: t[:height] for name, t in fmasks.items()}
+    for what, (values, f64) in _inexact_threshold_sets().items():
+        thresholds = HlsThresholds(**values)
+        exact = ExactThresholds.from_thresholds(thresholds)
+        if any(getattr(exact, name)[2] for name in values):
+            raise AssertionError(f'{what}: an exact rational among {exact}')
+        params, _, _ = wtr_kernel.kernel_params(
+            DswxChainConfig(thresholds=thresholds))
+        if bool(params.ratio_f64) is not f64:
+            raise AssertionError(f'{what}: ratio_f64 {params.ratio_f64}')
+        bands = [torch.from_numpy(b).to(DEVICE) for b in
+                 boundary_int16_bands(rng, (height, SIZE), thresholds)]
+        kw = {k: planes[k] for k in ('ocean', 'shadow', 'landcover')}
+        for mode in wtr_kernel.MODES:
+            cfg = DswxChainConfig(thresholds=thresholds,
+                                  mask_adjacent_to_cloud_mode=mode)
+            fmask = fmasks['structured' if mode == 'cover' else 'random']
+            args = (*bands, fmask, planes['invalid'])
+            want = wtr_kernel.wtr_layers_plain(*args, cfg, **kw)
+            for moved, move, vectorized in (
+                    ('aligned', lambda t: t, True),
+                    ('1 element into its buffer',
+                     lambda t: _shifted(torch, t), False)):
+                got, ran = _launched(
+                    torch, *[move(t) for t in args], config=cfg,
+                    **{name: move(t) for name, t in kw.items()})
+                torch.cuda.synchronize()
+                label = f'{what}, mode={mode}, {moved}'
+                err = max(err, _compare(torch, got, want, label))
+                if ran is not vectorized:
+                    raise AssertionError(f'{label}: the 8-pixel body ran: '
+                                         f'{ran}')
+                n_cases += 1
+            if mode == 'ignore':
+                continue
+            # the windowed body, full and packed outputs
+            stack = [t.unsqueeze(0) for t in args]
+            for minimal in (False, True):
+                wkw = dict(window=rows, minimal=minimal,
+                           landcover=planes['landcover'].unsqueeze(0))
+                got, ran = _launched(torch, *stack, config=cfg, **wkw)
+                label = f'{what}, mode={mode}, window, minimal={minimal}'
+                err = max(err, _compare(
+                    torch, got, wtr_kernel.wtr_layers_batched_plain(
+                        *stack, cfg, **wkw), label))
+                if ran:
+                    raise AssertionError(f'{label}: the 8-pixel body ran')
+                n_cases += 1
+        del bands
+    say(f'inexact int16-band thresholds: {n_cases} cases == plain chain, '
+        f'bit for bit ({len(_inexact_threshold_sets())} sets of thresholds '
+        f'x mask/ignore/cover x the 8-pixel, one-pixel and windowed bodies; '
+        f'float64 ratio tests and integer bounds from float64 thresholds; '
+        f'boundary-pushed int16 bands of {height} x {SIZE}); max |err| '
+        f'{err}')
 
 
 # bytes a pixel each slice's function must move at the main path's flags
@@ -493,7 +814,8 @@ NULL_BYTES_PER_PX = {'int16': 6 * 2 + 1 + 1 + 1, 'float32': 6 * 4 + 1 + 1 + 1}
 # csrc/wtr_kernel.cu, one for each add, multiply, divide, convert,
 # compare, logical operation, shift and select (loads and stores are the
 # bytes side). The function's count, not the kernel's: K2's pass B
-# recomputes its 17 px halo, 66^2/32^2 = 4.25 times the dilation work.
+# recomputes its 17 px halo, 128^2/94^2 = 1.85 times the dilation work, on
+# bit-planes, a few word operations a row a step.
 _OPS = {
     # diag_tests<int16>: 6 wrapped sums (an add and wrap16's add, and,
     # subtract: 24), AWEsh (3 multiplies, 3 adds: 6), 4 ratio tests (2
@@ -1017,12 +1339,13 @@ def _load_oracle():
 
 
 def _hold_against_oracle(oracle, label, got, bands, fmask, invalid, mode,
-                         ocean=None):
+                         ocean=None, thresholds=None):
     """The per-pixel layers vs the numpy oracle, fed the run's own SHAD and
-    LAND (as tests/test_workflow.py does)."""
+    LAND (as tests/test_workflow.py does); ``thresholds`` are the run's
+    changes to the default HlsThresholds."""
     import numpy as np
     from proteus_tpu_torch.core.thresholds import HlsThresholds
-    t = HlsThresholds()
+    t = HlsThresholds(**(thresholds or {}))
     want = oracle.full_chain(
         *[bands[k] for k in ('blue', 'green', 'red', 'nir', 'swir1',
                              'swir2')], fmask, invalid,
@@ -1854,6 +2177,73 @@ def phase_otsu_and_s2(torch, workdir, tile):
     return launches
 
 
+def phase_inexact_run(torch, workdir, tile):
+    """The default single-tile run on the card with thresholds that are no
+    exact rationals (run p): K1 launches as in run (c), and the layers
+    equal the numpy oracle (float64 on the integer bands)."""
+    oracle = _load_oracle()
+    import numpy as np
+
+    say('== phase 4b: a run with inexact int16-band thresholds on the card')
+    launches = _run_cli(
+        torch, 'p (default, inexact thresholds)',
+        [_default_runconfig(workdir, tile, 'p',
+                            thresholds=INEXACT_THRESHOLDS)], ('wtr_k1',))
+    got = _read_layers(os.path.join(workdir, 'output_p'))
+    _hold_against_oracle(oracle, 'p', got, tile['ints'], tile['raw']['Fmask'],
+                         tile['invalid'], 'mask',
+                         thresholds=INEXACT_THRESHOLDS)
+    want = _read_layers(os.path.join(workdir, 'output_c'))
+    moved = {k: int(np.sum(got[k] != want[k])) for k in ('DIAG', 'WTR')}
+    say(f'run p: WTR, BWTR, CONF, DIAG, WTR-1, WTR-2, CLOUD == oracle with '
+        f'the inexact thresholds (bit for bit), launches {launches}; against '
+        f'the default thresholds {moved} px differ')
+    return launches
+
+
+def phase_hosts(torch, workdir, tile, ctx):
+    """``dswx_campaign --hosts 2`` on card 0 (two worker processes that
+    share the card) against campaign (d), the same three jobs with
+    ``--hosts 1``: every product file byte for byte but the processing
+    time."""
+    from proteus_tpu_torch.cli.dswx_campaign import main as campaign_main
+
+    say('== phase 5d: dswx_campaign --hosts 2 on card 0 against --hosts 1 '
+        '(campaign d)')
+    dirs = [tile['input_dir'], ctx['tile_b'], ctx['copies']['tile_a2']]
+    out = os.path.join(workdir, 'campaign_d')
+    want_dir = os.path.join(workdir, 'campaign_d_one_host')
+    os.rename(out, want_dir)  # the workers write the same tile names
+    stats_path = os.path.join(workdir, 'stats_hosts.json')
+    argv = dirs + ['-o', out, '--dem', tile['dem_file'], '-c',
+                   tile['lc_file'], '-w', tile['wc_file'], '--browse',
+                   '--tiles-per-device', '2', '--product-version', '0.1',
+                   '--hosts', '2', '--stats-json', stats_path]
+    os.environ['PROTEUS_TPU_TORCH_DEVICE'] = 'cuda:0'
+    t0 = time.perf_counter()
+    try:
+        campaign_main(argv)
+    except SystemExit as exc:
+        raise AssertionError(f'campaign --hosts 2 exited with {exc.code}')
+    finally:
+        sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
+        os.environ['PROTEUS_TPU_TORCH_DEVICE'] = DEVICE
+    wall = time.perf_counter() - t0
+    with open(stats_path) as fh:
+        stats = json.load(fh)
+    if stats != {'tiles_done': 3, 'tiles_failed': 0, 'tiles_total': 3}:
+        raise AssertionError(f'campaign --hosts 2: {stats}')
+    specs = []
+    for k in range(2):
+        with open(os.path.join(out, '.dispatch', f'host{k}_r0.json')) as fh:
+            spec = json.load(fh)
+        specs.append((spec['devices'], len(spec['jobs'])))
+    n_files = _same_bytes('--hosts 2', want_dir, out)
+    say(f'campaign --hosts 2: {wall:.2f} s wall, workers (devices, jobs) '
+        f'{specs}; {n_files} product files == --hosts 1 (campaign d) byte '
+        f'for byte (but the processing time)')
+
+
 def _check_no_jax():
     loaded = sorted(m for m in sys.modules
                     if m == 'jax' or m.split('.')[0] == 'proteus_tpu')
@@ -1901,12 +2291,15 @@ def main(argv=None):
     os.environ['PROTEUS_TPU_TORCH_DEVICE'] = DEVICE
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as workdir:
         launches, tile = phase_main_path(torch, workdir)
+        for name, n in phase_inexact_run(torch, workdir, tile).items():
+            launches[name] = launches.get(name, 0) + n
         campaigns, ctx = phase_campaign(torch, workdir, tile)
         campaigns.update({k: campaigns.get(k, 0) + n for k, n in
                           phase_spatial_campaign(torch, workdir, tile,
                                                  ctx).items()})
         for name, n in campaigns.items():
             launches[name] = launches.get(name, 0) + n
+        phase_hosts(torch, workdir, tile, ctx)
         phase_step_sweep(torch, tile, workdir)
         for phase in (phase_profile, phase_otsu_and_s2):
             for name, n in phase(torch, workdir, tile).items():

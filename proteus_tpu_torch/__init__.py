@@ -27,3 +27,26 @@ code.
 - ``proteus_tpu_torch.tools``    the kernel-profile tool and the two benches
 - ``proteus_tpu_torch.testing``  the synthetic tile writers
 """
+
+from proteus_tpu_torch.version import VERSION
+
+__version__ = VERSION
+
+
+def generate_dswx_layers(*args, **kwargs):
+    """Library API (reference-compatible, plus ``device=``); see
+    proteus_tpu_torch.runtime.orchestrator.generate_dswx_layers."""
+    from proteus_tpu_torch.runtime.orchestrator import \
+        generate_dswx_layers as f
+    return f(*args, **kwargs)
+
+
+def compare_dswx_hls_products(*args, **kwargs):
+    from proteus_tpu_torch.runtime.compare import \
+        compare_dswx_hls_products as f
+    return f(*args, **kwargs)
+
+
+def save_as_cog(*args, **kwargs):
+    from proteus_tpu_torch.io.cog import save_as_cog as f
+    return f(*args, **kwargs)

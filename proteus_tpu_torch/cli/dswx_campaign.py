@@ -9,8 +9,10 @@ prefetched host I/O, a resume manifest, and per-tile retry. The devices
 come from ``PROTEUS_TPU_TORCH_DEVICE`` (default ``cuda``: every visible
 GPU; ``cuda:N`` one of them; ``cpu`` the CPU); asking for CUDA on a
 machine without it is an error. ``--spatial-shards N`` cuts each tile's
-rows over N of them (their number must divide by N). ``--hosts`` above 1
-is not ported yet and raises.
+rows over N of them (their number must divide by N). ``--hosts N``
+dispatches the tiles over N worker processes
+(``parallel/dispatch.py``), which share the machine's cards: each takes its
+own subset of them, or with fewer cards than workers they share one.
 
 Examples:
     python -m proteus_tpu_torch.cli.dswx_campaign tiles/T15RYP tiles/T15RYN -o out/
@@ -19,12 +21,12 @@ Examples:
 
 import argparse
 import glob
+import json
 import logging
 import os
 import sys
 
 from proteus_tpu_torch.core.thresholds import HlsThresholds
-from proteus_tpu_torch.core.unported import MULTI_HOST, not_ported
 from proteus_tpu_torch.device import resolve_device
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.runtime.logging_util import create_logger
@@ -95,8 +97,8 @@ def get_parser():
                              'it)')
     parser.add_argument('--hosts', type=int, default=1,
                         help='Dispatch the campaign across this many '
-                             'host worker processes (not ported yet: '
-                             'above 1 raises)')
+                             'host worker processes, which share the '
+                             'visible GPUs')
     parser.add_argument('--debug', dest='flag_debug',
                         action='store_true', default=False,
                         help='Read only 1000x1000 windows')
@@ -122,9 +124,11 @@ def _devices():
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    device_spec = os.environ.get('PROTEUS_TPU_TORCH_DEVICE', 'cuda')
     if args.hosts > 1:
-        raise not_ported(MULTI_HOST)
-    devices = _devices()
+        resolve_device(device_spec)  # the workers pick their own devices
+    else:
+        devices = _devices()
     create_logger(args.log_file)
 
     tile_dirs = list(args.input_dirs)
@@ -158,6 +162,35 @@ def main(argv=None):
                                              'campaign_manifest.json')
     os.makedirs(args.output_dir, exist_ok=True)
 
+    def finish(stats):
+        logger.info(f'campaign complete: {stats}')
+        if args.stats_json:
+            with open(args.stats_json, 'w') as fh:
+                json.dump(stats, fh, indent=1)
+        if stats['tiles_failed']:
+            sys.exit(1)
+
+    if args.hosts > 1:
+        from proteus_tpu_torch.parallel.dispatch import dispatch_campaign
+        _, stats = dispatch_campaign(
+            jobs, n_hosts=args.hosts, manifest_path=manifest,
+            scratch_dir=os.path.join(args.output_dir, '.dispatch'),
+            config_kwargs=dict(
+                mask_adjacent_to_cloud_mode=
+                args.mask_adjacent_to_cloud_mode,
+                shadow_masking_algorithm=
+                args.shadow_masking_algorithm),
+            save_browse=args.save_browse, device=device_spec,
+            runner_kwargs=dict(
+                max_retries=args.max_retries,
+                reader_threads=args.reader_threads,
+                writer_threads=args.writer_threads,
+                flag_debug=args.flag_debug,
+                spatial_shards=args.spatial_shards,
+                tiles_per_device=args.tiles_per_device,
+                scaled_inputs=args.scaled_inputs))
+        return finish(stats)
+
     config = DswxChainConfig(
         thresholds=HlsThresholds(),
         mask_adjacent_to_cloud_mode=args.mask_adjacent_to_cloud_mode,
@@ -172,14 +205,7 @@ def main(argv=None):
                             spatial_shards=args.spatial_shards,
                             tiles_per_device=args.tiles_per_device,
                             scaled_inputs=args.scaled_inputs)
-    stats = runner.run(jobs)
-    logger.info(f'campaign complete: {stats}')
-    if args.stats_json:
-        import json
-        with open(args.stats_json, 'w') as fh:
-            json.dump(stats, fh, indent=1)
-    if stats['tiles_failed']:
-        sys.exit(1)
+    finish(runner.run(jobs))
 
 
 if __name__ == '__main__':

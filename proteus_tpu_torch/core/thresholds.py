@@ -19,8 +19,9 @@ disagree with the exact rational one. The equality case agrees too because
 float64(p/q) == float64(t) when p/q is the exact decimal the user wrote.
 
 If a threshold cannot be represented as p/q within the overflow-safe bounds,
-``exact=False`` flags it, and the port's integer chain raises
-(``core/unported.py::INEXACT_THRESHOLDS``).
+``exact=False`` flags it: the plain chain (``models/dswx/diagnostics.py``)
+and the CUDA kernels (``ops/wtr_kernel.py::kernel_params``) then decide that
+test with the reference's float64 semantics.
 """
 
 import dataclasses

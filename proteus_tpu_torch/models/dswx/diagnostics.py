@@ -6,8 +6,20 @@ int16 bands (the product default): every threshold comparison runs in
 int32 as ``q*num OP p*den`` (see ``proteus_tpu.core.thresholds``), which is
 bit-identical to the reference's float64 evaluation, including the int16
 wrap-around of the band sums. The sums are formed in int32 and wrapped
-explicitly, exactly as the CUDA kernel does. Thresholds that are not exact
-rationals raise ``NotImplementedError`` on this path.
+explicitly, exactly as the CUDA kernel does. A threshold that is not an
+exact rational (a user-set 1/3) is decided with the reference's float64
+semantics instead: a ratio test divides in float64, tensor by tensor (the
+correctly rounded IEEE quotient on the CPU and on CUDA, so it is NumPy's
+``float64(num) / float64(den) OP t`` bit for bit, 0/0 -> NaN -> False and
+x/0 -> +-inf included), and a band or AWEsh test compares with the integer
+bound of ``core/f32exact.py``. The JAX package reaches the same decisions
+without dividing (``ratio_boundary`` and ``ratio_cmp``); for the degenerate
+thresholds outside that machinery's domain (finite |t| below about 1e-30
+or beyond float32's range) it falls back to a float32 division it calls
+approximate, where the port keeps the float64 division, which is NumPy's
+decision for every threshold. The CUDA kernels decide such a threshold the
+same way: the integer bound from the host, and ``__ddiv_rn`` on the
+operands as float64 (``ops/wtr_kernel.py::kernel_params``).
 
 float32 bands (offset-and-scaled inputs): the reference evaluates the
 chain in NumPy float32, one rounding per operation, so this path does the
@@ -21,7 +33,7 @@ only because TPU float32 division is not correctly rounded.
 import numpy as np
 import torch
 
-from proteus_tpu_torch.core.unported import INEXACT_THRESHOLDS, not_ported
+from proteus_tpu_torch.core.f32exact import int_gt_bound, int_lt_bound
 from proteus_tpu_torch.core.thresholds import ExactThresholds, HlsThresholds
 
 _I32 = torch.int32
@@ -48,12 +60,30 @@ def _ratio_lt_exact(num, den, p, q):
                        torch.where(den < 0, qnum > pden, num < 0))
 
 
-def exact_pq(field):
-    """(p, q) of an ExactThresholds field; raises if it is not exact."""
-    p, q, exact = field
-    if not exact:
-        raise not_ported(INEXACT_THRESHOLDS)
-    return p, q
+def _clip_i32(bound):
+    return int(np.clip(bound, -2 ** 31 + 1, 2 ** 31 - 1))
+
+
+def _int_ratio_test(num, den, field, tval, op):
+    """num/den OP tval (op 'gt' or 'lt') in float64 semantics for any
+    threshold: the int32 rational rewrite where it is exact, else the
+    float64 quotient of the two tensors against ``float64(tval)``."""
+    if field[2]:
+        fn = _ratio_gt_exact if op == 'gt' else _ratio_lt_exact
+        return fn(num, den, *field[:2])
+    quotient = num.to(torch.float64) / den.to(torch.float64)
+    t = float(tval)
+    return quotient > t if op == 'gt' else quotient < t
+
+
+def _int_scalar_lt(band, field, tval):
+    """band < tval (float64 semantics) for int32 band values."""
+    if field[2]:
+        return band * field[1] < field[0]
+    bound = int_lt_bound(tval)
+    if bound is None:
+        return torch.zeros_like(band, dtype=torch.bool)
+    return band <= _clip_i32(bound)
 
 
 def _diag_tests_int(blue, green, red, nir, swir1, swir2,
@@ -69,20 +99,32 @@ def _diag_tests_int(blue, green, red, nir, swir1, swir2,
     # AWEsh * 4 is an exact integer: blue + 2.5g - 1.5*mbsrn - 0.25*s2
     awesh4 = 4 * b + 10 * g - 6 * mbsrn - s2
 
-    def lt(band, field):
-        p, q = exact_pq(field)
-        return band * q < p
+    tv = et.float_values
 
-    t1 = _ratio_gt_exact(mndwi_num, mndwi_den, *exact_pq(et.wigt))
+    def mndwi_gt(name):
+        return _int_ratio_test(mndwi_num, mndwi_den, getattr(et, name),
+                               getattr(tv, name), 'gt')
+
+    def lt(band, name):
+        return _int_scalar_lt(band, getattr(et, name), getattr(tv, name))
+
+    t1 = mndwi_gt('wigt')
     t2 = mbsrv > mbsrn
-    p, q = exact_pq(et.awgt)
-    t3 = awesh4 * q > 4 * p
-    t4 = (_ratio_gt_exact(mndwi_num, mndwi_den, *exact_pq(et.pswt_1_mndwi))
-          & lt(s1, et.pswt_1_swir1) & lt(n, et.pswt_1_nir)
-          & _ratio_lt_exact(ndvi_num, ndvi_den, *exact_pq(et.pswt_1_ndvi)))
-    t5 = (_ratio_gt_exact(mndwi_num, mndwi_den, *exact_pq(et.pswt_2_mndwi))
-          & lt(b, et.pswt_2_blue) & lt(s1, et.pswt_2_swir1)
-          & lt(s2, et.pswt_2_swir2) & lt(n, et.pswt_2_nir))
+    if et.awgt[2]:
+        p, q = et.awgt[:2]
+        t3 = awesh4 * q > 4 * p
+    else:
+        # awesh = awesh4 / 4 exactly in float64: awesh > t <=> awesh4 > 4t
+        bound = int_gt_bound(np.float64(tv.awgt) * 4)
+        t3 = (torch.zeros_like(awesh4, dtype=torch.bool) if bound is None
+              else awesh4 >= _clip_i32(bound))
+    t4 = (mndwi_gt('pswt_1_mndwi') & lt(s1, 'pswt_1_swir1')
+          & lt(n, 'pswt_1_nir')
+          & _int_ratio_test(ndvi_num, ndvi_den, et.pswt_1_ndvi,
+                            tv.pswt_1_ndvi, 'lt'))
+    t5 = (mndwi_gt('pswt_2_mndwi') & lt(b, 'pswt_2_blue')
+          & lt(s1, 'pswt_2_swir1') & lt(s2, 'pswt_2_swir2')
+          & lt(n, 'pswt_2_nir'))
     return t1, t2, t3, t4, t5
 
 

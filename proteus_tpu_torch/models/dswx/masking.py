@@ -3,14 +3,15 @@
 Port of ``proteus_tpu/models/dswx/masking.py``: every cloud-adjacent mode
 ('mask', 'ignore', and 'cover' with its two masked binary dilations), on
 int16 or float32 reflectance. On int16 bands an ``lcmask_nir`` that is not
-an exact rational raises ``NotImplementedError``.
+an exact rational is compared through its integer bound
+(``core/f32exact.py``), as in the reference.
 """
 
 import numpy as np
 import torch
 
-from proteus_tpu_torch.core.unported import INEXACT_THRESHOLDS, not_ported
 from proteus_tpu_torch.core import constants as C
+from proteus_tpu_torch.core.f32exact import int_gt_bound
 from proteus_tpu_torch.core.thresholds import (SCALAR_MAX_DEN,
                                                SCALAR_MAX_NUM, HlsThresholds,
                                                to_exact_fraction)
@@ -77,23 +78,21 @@ def is_water_class(layer):
             (layer <= C.LAST_UNCOLLAPSED_WATER_CLASS))
 
 
-def lcmask_nir_pq(lcmask_nir):
-    """(p, q) with p/q == lcmask_nir exactly; raises if there is none."""
-    pq = to_exact_fraction(lcmask_nir, SCALAR_MAX_DEN, SCALAR_MAX_NUM)
-    if pq is None:
-        raise not_ported(INEXACT_THRESHOLDS)
-    return pq
-
-
 def _nir_gt_lcmask(nir, lcmask_nir):
     """nir > lcmask_nir as the reference decides it: float64-exact for
-    integer nir, plain float32 for float nir (masking.py:92-109). The dtype
-    is looked at first, so an inexact threshold raises on int16 bands
-    only."""
+    integer nir (the exact rational, else the integer bound), plain float32
+    for float nir (masking.py:92-109)."""
     if nir.dtype.is_floating_point:
         return nir > f32(lcmask_nir)
-    p, q = lcmask_nir_pq(lcmask_nir)
-    return nir.to(torch.int32) * q > p
+    pq = to_exact_fraction(lcmask_nir, SCALAR_MAX_DEN, SCALAR_MAX_NUM)
+    if pq is not None:
+        p, q = pq
+        return nir.to(torch.int32) * q > p
+    bound = int_gt_bound(lcmask_nir)
+    if bound is None:
+        return torch.zeros_like(nir, dtype=torch.bool)
+    bound = int(np.clip(bound, -2 ** 31 + 1, 2 ** 31 - 1))
+    return nir.to(torch.int32) >= bound
 
 
 def apply_landcover_and_shadow_masks(interpreted_layer, nir, landcover_mask,

@@ -24,23 +24,28 @@ step, with the other three slices:
   inputs are a block of tile rows with its halo, the outputs the block's
   window of the shard's own rows.
 
-Dispatch follows the tensors' device and nothing else: CUDA tensors launch
-the kernels (or raise), CPU tensors run ``wtr_layers_plain`` or
+Dispatch: CPU tensors run ``wtr_layers_plain`` or
 ``wtr_layers_batched_plain``, built on the plain PyTorch chain of
-``proteus_tpu_torch.models.dswx.chain``. There is no fallback from a kernel
-to the plain chain.
+``proteus_tpu_torch.models.dswx.chain``; CUDA tensors launch the kernels or
+raise, whatever the config: an int16-band threshold that is no exact
+rational (which the reference keeps away from its Pallas kernel) reaches
+them as an integer bound or, for the ratio tests, as its float64
+(``kernel_params``). There is no opt-out on a card: the reference's
+``PROTEUS_TPU_USE_PALLAS`` is not read, and the plain chain is what
+``device='cpu'`` runs.
 """
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from proteus_tpu_torch.core import constants as C
+from proteus_tpu_torch.core.f32exact import int_gt_bound, int_lt_bound
 from proteus_tpu_torch.core.thresholds import ExactThresholds
 from proteus_tpu_torch.models.dswx.chain import dswx_chain
-from proteus_tpu_torch.models.dswx.diagnostics import exact_pq, f32
-from proteus_tpu_torch.models.dswx.masking import lcmask_nir_pq
+from proteus_tpu_torch.models.dswx.diagnostics import f32
 
 # launches of each kernel slice since the counts were last reset (set a
 # count to 0 to reset it)
@@ -53,24 +58,39 @@ MODES = ('mask', 'ignore', 'cover')
 BANDS = ('blue', 'green', 'red', 'nir', 'swir1', 'swir2')
 MAX_SCALED_BATCH = 1024  # K4 stages 48 B a tile in 48 KB of shared memory
 
-_PQ_FIELDS = ('wigt', 'awgt', 'pswt_1_mndwi', 'pswt_1_swir1', 'pswt_1_nir',
-              'pswt_1_ndvi', 'pswt_2_mndwi', 'pswt_2_blue', 'pswt_2_nir',
-              'pswt_2_swir1', 'pswt_2_swir2', 'lcmask_nir')
-_PARAM_NAMES = ('wigt', 'awgt', 'p1_mndwi', 'p1_swir1', 'p1_nir', 'p1_ndvi',
-                'p2_mndwi', 'p2_blue', 'p2_nir', 'p2_swir1', 'p2_swir2',
-                'lcmask')
+# HlsThresholds field -> the kernels' name of its test
+_RATIO_FIELDS = {'wigt': 'wigt', 'pswt_1_mndwi': 'p1_mndwi',
+                 'pswt_1_ndvi': 'p1_ndvi', 'pswt_2_mndwi': 'p2_mndwi'}
+_BAND_LT_FIELDS = {'pswt_1_swir1': 'p1_swir1', 'pswt_1_nir': 'p1_nir',
+                   'pswt_2_blue': 'p2_blue', 'pswt_2_nir': 'p2_nir',
+                   'pswt_2_swir1': 'p2_swir1', 'pswt_2_swir2': 'p2_swir2'}
+_F32_FIELDS = dict(_RATIO_FIELDS, awgt='awgt', lcmask_nir='lcmask',
+                   **_BAND_LT_FIELDS)
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
 
 
 class WtrParams(ctypes.Structure):
     """Mirror of ``struct WtrParams`` in csrc/wtr_kernel.cu."""
-    _fields_ = ([(f'{name}_{pq}', ctypes.c_int32)
-                 for name in _PARAM_NAMES for pq in ('p', 'q')]
-                + [('aerosol_lut', ctypes.c_uint8 * 256)])
+    _fields_ = ([(f'{name}_t', ctypes.c_double)
+                 for name in _RATIO_FIELDS.values()]
+                + [(f'{name}_{pq}', ctypes.c_int32)
+                   for name in _RATIO_FIELDS.values() for pq in ('p', 'q')]
+                + [('ratio_f64', ctypes.c_int32),
+                   ('aerosol_lut', ctypes.c_uint8 * 256)])
+
+
+class WtrBounds(ctypes.Structure):
+    """Mirror of ``struct WtrBounds`` in csrc/wtr_kernel.cu."""
+    _fields_ = [(name, ctypes.c_int32) for name in (
+        'p1_swir1_le', 'p1_nir_le', 'p2_blue_le', 'p2_nir_le', 'p2_swir1_le',
+        'p2_swir2_le', 'awesh4_ge', 'lcmask_ge')]
 
 
 class WtrParamsF32(ctypes.Structure):
     """Mirror of ``struct WtrParamsF32`` in csrc/wtr_kernel.cu."""
-    _fields_ = [(name, ctypes.c_float) for name in _PARAM_NAMES]
+    _fields_ = [(name, ctypes.c_float) for name in (
+        'wigt', 'awgt', 'p1_mndwi', 'p1_swir1', 'p1_nir', 'p1_ndvi',
+        'p2_mndwi', 'p2_blue', 'p2_nir', 'p2_swir1', 'p2_swir2', 'lcmask')]
 
 
 class WtrFlags(ctypes.Structure):
@@ -82,29 +102,69 @@ class WtrFlags(ctypes.Structure):
         'minimal')]
 
 
+def _le_bound(field, tval):
+    """The int32 B with ``x < t`` == ``x <= B`` for every integer x a band
+    can hold: from the exact rational ``field`` = (p, q, exact) of the
+    threshold ``tval``, else from its float64; INT32_MIN where the test
+    never holds."""
+    p, q, exact = field
+    bound = (p - 1) // q if exact else int_lt_bound(tval)
+    return _I32_MIN if bound is None else max(_I32_MIN, min(_I32_MAX, bound))
+
+
+def _ge_bound(field, tval, scale=1):
+    """The int32 B with ``x > scale * t`` == ``x >= B`` for every integer x
+    of the chain (|x| < 2^31 - 1); INT32_MAX where the test never holds."""
+    p, q, exact = field
+    bound = scale * p // q + 1 if exact \
+        else int_gt_bound(np.float64(tval) * scale)
+    return _I32_MAX if bound is None else max(_I32_MIN, min(_I32_MAX, bound))
+
+
 @functools.lru_cache(maxsize=16)
 def kernel_params(config, float_bands=False):
     """The kernels' thresholds for ``config``: ``WtrParams`` (the aerosol
-    LUT and, for int16 bands, the exact (p, q) pairs; raises if one is not
-    an exact rational) and ``WtrParamsF32`` (for float32 bands, each
-    threshold as NumPy's float32). Cached per config: building them takes
-    about as long on the host as K1 takes on the card; the launches only
-    read them."""
+    LUT and, for int16 bands, the ratio tests' exact (p, q) pairs or, where
+    one of them is no exact rational, ``ratio_f64`` and the four thresholds
+    as float64), ``WtrBounds`` (for int16 bands, the band, AWEsh and lcmask
+    tests as integer bounds, from the exact rational or the float64
+    threshold) and ``WtrParamsF32`` (for float32 bands, each threshold as
+    NumPy's float32). Cached per config: building them takes about as long
+    on the host as K1 takes on the card; the launches only read them."""
     params = WtrParams()
+    bounds = WtrBounds()
     params_f32 = WtrParamsF32()
     params.aerosol_lut[:] = [int(v) for v in config.aerosol_lut()]
     t = config.thresholds
     if float_bands:
-        for name, field in zip(_PARAM_NAMES, _PQ_FIELDS):
+        for field, name in _F32_FIELDS.items():
             setattr(params_f32, name, f32(getattr(t, field)))
-        return params, params_f32
+        return params, bounds, params_f32
     et = ExactThresholds.from_thresholds(t)
-    for name, field in zip(_PARAM_NAMES, _PQ_FIELDS):
-        p, q = (lcmask_nir_pq(t.lcmask_nir) if field == 'lcmask_nir'
-                else exact_pq(getattr(et, field)))
+    params.ratio_f64 = int(not all(getattr(et, field)[2]
+                                   for field in _RATIO_FIELDS))
+    for field, name in _RATIO_FIELDS.items():
+        p, q, _ = getattr(et, field)
         setattr(params, f'{name}_p', p)
         setattr(params, f'{name}_q', q)
-    return params, params_f32
+        setattr(params, f'{name}_t', float(getattr(t, field)))
+    for field, name in _BAND_LT_FIELDS.items():
+        setattr(bounds, f'{name}_le',
+                _le_bound(getattr(et, field), getattr(t, field)))
+    # awesh = awesh4 / 4 exactly: awesh > t <=> awesh4 > 4 t
+    bounds.awesh4_ge = _ge_bound(et.awgt, t.awgt, scale=4)
+    bounds.lcmask_ge = _ge_bound(et.lcmask_nir, t.lcmask_nir)
+    return params, bounds, params_f32
+
+
+def _on_cpu(device):
+    """Whether a call on ``device`` runs the plain chain: on the CPU, and
+    nowhere else."""
+    if device.type == 'cpu':
+        return True
+    if device.type != 'cuda':
+        raise ValueError(f'wtr_layers: unsupported device {device}')
+    return False
 
 
 def kernel_flags(config, with_ocean, with_shadow, with_landcover,
@@ -221,26 +281,23 @@ def wtr_layers_batched_plain(blue, green, red, nir, swir1, swir2, fmask,
 def wtr_layers(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
                ocean=None, shadow=None, landcover=None, compute_browse=True):
     """DIAG (uint16) and WTR-1, WTR-2, WTR, BWTR, CONF, CLOUD, BROWSE
-    (uint8) of one (H, W) tile as a dict; the CUDA kernels for CUDA
-    tensors, the plain chain for CPU tensors. Bands are all int16 or all
+    (uint8) of one (H, W) tile as a dict; the plain chain for CPU tensors,
+    the CUDA kernels for CUDA tensors. Bands are all int16 or all
     float32."""
-    device = blue.device
-    if device.type == 'cpu':
+    if _on_cpu(blue.device):
         return wtr_layers_plain(blue, green, red, nir, swir1, swir2, fmask,
                                 invalid, config, ocean, shadow, landcover,
                                 compute_browse)
-    if device.type != 'cuda':
-        raise ValueError(f'wtr_layers: unsupported device {device}')
     if blue.dim() != 2:
         raise ValueError(f'wtr_layers: bands must be (H, W), got '
                          f'{tuple(blue.shape)}')
 
     def one(t):
         return None if t is None else t.unsqueeze(0)
-    out = _launch([one(b) for b in (blue, green, red, nir, swir1, swir2)],
-                  one(fmask), one(invalid), config, None, None, one(ocean),
-                  one(shadow), one(landcover), compute_browse, False,
-                  batched=False)
+    out, _ = _launch([one(b) for b in (blue, green, red, nir, swir1, swir2)],
+                     one(fmask), one(invalid), config, None, None,
+                     one(ocean), one(shadow), one(landcover), compute_browse,
+                     False, batched=False)
     return {name: t[0] for name, t in out.items()}
 
 
@@ -260,22 +317,19 @@ def wtr_layers_batched(blue, green, red, nir, swir1, swir2, fmask, invalid,
     layers of block rows row0 .. row0 + rows - 1 (the spatial launch,
     ``wtr_k6_spatial``). Rows beyond the block count as outside the image.
 
-    CUDA tensors launch the kernels, CPU tensors run
-    ``wtr_layers_batched_plain``."""
-    device = blue.device
-    if device.type == 'cpu':
+    CPU tensors run ``wtr_layers_batched_plain``; CUDA tensors launch the
+    kernels."""
+    if _on_cpu(blue.device):
         return wtr_layers_batched_plain(
             blue, green, red, nir, swir1, swir2, fmask, invalid, config,
             scales, offsets, ocean, shadow, landcover, compute_browse,
             minimal, window)
-    if device.type != 'cuda':
-        raise ValueError(f'wtr_layers_batched: unsupported device {device}')
     if blue.dim() != 3:
         raise ValueError(f'wtr_layers_batched: bands must be (B, H, W), '
                          f'got {tuple(blue.shape)}')
     return _launch([blue, green, red, nir, swir1, swir2], fmask, invalid,
                    config, scales, offsets, ocean, shadow, landcover,
-                   compute_browse, minimal, batched=True, window=window)
+                   compute_browse, minimal, batched=True, window=window)[0]
 
 
 def _check_window(window, height):
@@ -289,13 +343,15 @@ def _check_window(window, height):
 
 def _launch(bands, fmask, invalid, config, scales, offsets, ocean, shadow,
             landcover, compute_browse, minimal, batched, window=None):
-    out, state, flags, slices = pixel_pass(
+    """The layers of a [B, H, W] stack of CUDA tensors, and whether the
+    per-pixel launch took its 8-pixel body (``pixel_pass``)."""
+    out, state, flags, slices, vectorized = pixel_pass(
         *bands, fmask, invalid, config, scales, offsets, ocean, shadow,
         landcover, compute_browse, minimal, batched, window)
     if state is not None:
         launch_k2(state, out, flags, slices,
                   row0=0 if window is None else int(window[0]))
-    return out
+    return out, vectorized
 
 
 def _check(name, t, dtypes, shape, device):
@@ -316,8 +372,10 @@ def _bind(lib):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wtr_pixel_launch.argtypes = (
             [i] + [p] * 24 + [i] * 5 + [ctypes.POINTER(WtrParams),
+                                        ctypes.POINTER(WtrBounds),
                                         ctypes.POINTER(WtrParamsF32),
-                                        ctypes.POINTER(WtrFlags), p])
+                                        ctypes.POINTER(WtrFlags),
+                                        ctypes.POINTER(i), p])
         lib.wtr_pixel_launch.restype = i
         lib.wtr_k2_launch.argtypes = [p] * 9 + [i] * 5 + [
             ctypes.POINTER(WtrFlags), p]
@@ -351,9 +409,11 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
     mode pass A of K2; with ``window = (row0, rows)`` the layers are the
     [B, rows, W] window of the stack's rows (the state stays [B, H, W]).
     Returns the layers, the 'cover' state bytes (None in the other modes;
-    ``launch_k2`` finishes the layers from them), the launch flags and the
+    ``launch_k2`` finishes the layers from them), the launch flags, the
     slices of the call (``kernel_slices``; K6 with ``batched``, K6 spatial
-    with a window)."""
+    with a window) and whether the 8-pixel vector body ran (every plane
+    aligned to its vector, no window) rather than the one-pixel body
+    alone."""
     from proteus_tpu_torch.ops.build import build
 
     mode = config.mask_adjacent_to_cloud_mode
@@ -387,7 +447,7 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
         if t is not None:
             _check(name, t, (torch.uint8,), shape, device)
     float_bands = blue.dtype == torch.float32 or device_scale
-    params, params_f32 = kernel_params(config, float_bands)
+    params, bounds, params_f32 = kernel_params(config, float_bands)
     flags = kernel_flags(config, ocean is not None, shadow is not None,
                          landcover is not None, compute_browse, minimal)
 
@@ -411,6 +471,7 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
     # the launch goes to the current device and the stream handle is that
     # device's: make the tensors' device current (a campaign spreads its
     # batch over every visible card)
+    vectorized = ctypes.c_int(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.wtr_pixel_launch(
@@ -420,11 +481,12 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
             _ptr(ocean), _ptr(shadow), _ptr(landcover),
             *[_ptr(out.get(k)) for k in LAYERS + ('BROWSE',) + PACKED],
             _ptr(state), batch, shape[1], shape[2], row0, rows,
-            ctypes.byref(params), ctypes.byref(params_f32),
-            ctypes.byref(flags), stream)
+            ctypes.byref(params), ctypes.byref(bounds),
+            ctypes.byref(params_f32),
+            ctypes.byref(flags), ctypes.byref(vectorized), stream)
     _raise_on(lib, err, f'{"+".join(slices)} launch')
     _count(s for s in slices if s != 'wtr_k2')
-    return out, state, flags, slices
+    return out, state, flags, slices, bool(vectorized.value)
 
 
 def launch_k2(state, out, flags, slices=('wtr_k2',), row0=0):

@@ -15,10 +15,6 @@ all layers come back to the host once, after the chain.
 With ``PROTEUS_TPU_TRACE_DIR`` set, the device chain and the transfer run
 under ``runtime.profiling.device_trace`` (a ``torch.profiler`` trace, as
 ``proteus_tpu/runtime/orchestrator.py:502`` takes a ``jax.profiler`` one).
-
-The one path of this function the port does not run yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item: integer-band
-thresholds that are not exact rationals (``core/unported.py``).
 """
 
 import logging

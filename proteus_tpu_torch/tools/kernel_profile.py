@@ -60,6 +60,10 @@ FLOOR_OF = {'int_full': 'floor_int16_inputs',
             'scaled_minimal_packed': 'floor_f32_inputs'}
 
 
+# device clock cycles the card spins before a timed pass (about 10 ms)
+HOLD_CYCLES = 20_000_000
+
+
 def make_inputs(size, device):
     """The JAX tool's inputs (tools/kernel_profile.py:120-127) on
     ``device``: (6 int16 bands + fmask + invalid, 6 float32 bands + fmask
@@ -81,7 +85,10 @@ def timed_passes(fn, args, iters, passes, device):
     """Seconds of one ``fn(*args)``: the median of ``passes`` passes and
     every pass, each pass ``iters`` launches between two CUDA events (the
     host clock on the CPU). Launch k reads its own first input, ``args[0]
-    + k``, made before the clock starts."""
+    + k``, made before the clock starts. The card is held busy (a spin
+    kernel of ``HOLD_CYCLES``) while the host queues the pass, so the
+    events time the device and not a wrapper's host time, which is as long
+    as a kernel of 0.1 ms."""
     firsts = [args[0] + k for k in range(iters)]
     fn(*args)  # build, warm up
     synchronize(device)
@@ -90,6 +97,7 @@ def timed_passes(fn, args, iters, passes, device):
         if device.type == 'cuda':
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
             start.record()
             for first in firsts:
                 fn(first, *args[1:])

@@ -21,7 +21,6 @@ from proteus_tpu.models.dswx.chain import DswxChainConfig as JaxConfig
 from proteus_tpu.parallel import campaign as jcampaign
 from proteus_tpu.parallel.mesh import make_tile_mesh as jax_mesh
 from proteus_tpu_torch.cli import dswx_campaign as tcli
-from proteus_tpu_torch.core import unported
 from proteus_tpu_torch.models.dswx import host_derive as tderive
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops import wtr_kernel
@@ -371,19 +370,40 @@ def test_tiles_per_device_default(monkeypatch):
 
 # ---- the CLI ---------------------------------------------------------------
 
-@pytest.mark.parametrize('argv,match', [
-    (['--hosts', '2'], 'multi-host'),
-    (['--hosts', '3', '--shadow-masking-algorithm', 'otsu'], 'item 20'),
-])
-def test_cli_unported_raise(tiles, tmp_path, monkeypatch, argv, match):
+def test_cli_hosts_runs(tiles, tmp_path, monkeypatch):
+    """``--hosts 2`` sends the tiles to worker processes
+    (``parallel/dispatch.py``), and every product equals the ``--hosts 1``
+    run's. (tests/test_torch_dispatch.py holds the dispatch itself.)"""
+    import functools
+    from proteus_tpu_torch.parallel import dispatch
     _, dirs, anc = tiles
     monkeypatch.setenv('PROTEUS_TPU_TORCH_DEVICE', 'cpu')
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(dirs[:1] + ['-o', str(tmp_path / 'o')] + argv)
-    assert not glob.glob(str(tmp_path / 'o' / '*' / '*.tif'))
-    # what is left unported: two paths, each naming its ROADMAP item
-    names = sorted(n for n in vars(unported) if n.isupper())
-    assert names == ['INEXACT_THRESHOLDS', 'MULTI_HOST']
+    monkeypatch.setenv('OMP_NUM_THREADS', '1')
+    # a worker that hangs fails the test instead of stalling it
+    monkeypatch.setattr(dispatch, 'dispatch_campaign', functools.partial(
+        dispatch.dispatch_campaign, timeout=240, max_host_failures=0))
+    common = ['--dem', anc['dem_file'], '--tiles-per-device', '2']
+    outs = {}
+    for label, hosts in (('one', '1'), ('many', '2')):
+        outs[label] = str(tmp_path / label)
+        stats = str(tmp_path / f'{label}.json')
+        tcampaign.ANCILLARY_CACHE.clear()
+        tcli.main(dirs[:3] + ['-o', outs[label], '--stats-json', stats]
+                  + common + ['--hosts', hosts])
+        import json
+        with open(stats) as fh:
+            got = json.load(fh)
+        assert got['tiles_done'] == 3 and got['tiles_failed'] == 0
+    want = sorted(glob.glob(os.path.join(outs['one'], '*', '*.tif')))
+    assert len(want) == 3 * 9  # no landcover given: no LAND
+    for wf in want:
+        gf = os.path.join(outs['many'], os.path.relpath(wf, outs['one']))
+        with TiffReader(wf) as rw, TiffReader(gf) as rg:
+            np.testing.assert_array_equal(rg.read(), rw.read(), err_msg=gf)
+        assert compare_dswx_hls_products(wf, gf), gf
+    specs = glob.glob(os.path.join(outs['many'], '.dispatch', 'host*_r0.json'))
+    assert len(specs) == 2
+    tcampaign.ANCILLARY_CACHE.clear()
 
 
 def test_cli_runs_the_otsu_shadow(tiles, tmp_path, monkeypatch):

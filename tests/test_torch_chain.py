@@ -108,12 +108,24 @@ def test_wrap16_matches_int16():
 @pytest.mark.parametrize('change', [dict(wigt=0.12345678), dict(awgt=1e-7),
                                     dict(lcmask_nir=0.1 + 0.2)],
                          ids=['wigt', 'awgt', 'lcmask'])
-def test_inexact_thresholds_raise(change):
+def test_inexact_thresholds_run(change):
+    """A threshold with no exact rational runs: the kernels' parameters
+    carry it as an integer bound or a float64, and the plain chain decides
+    it as the reference does."""
     cfg = tchain.DswxChainConfig(thresholds=HlsThresholds(**change))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        wtr_kernel.wtr_layers(*[T(x) for x in INPUTS['bands']],
-                              T(INPUTS['fmask']), T(INPUTS['invalid']), cfg,
-                              landcover=T(INPUTS['landcover']))
+    params, bounds, _ = wtr_kernel.kernel_params(cfg)
+    assert params.ratio_f64 == int('wigt' in change)
+    assert (bounds.awesh4_ge, bounds.lcmask_ge) == (1, 1 if 'lcmask_nir' in
+                                                    change else 1201)
+    out = wtr_kernel.wtr_layers(*[T(x) for x in INPUTS['bands']],
+                                T(INPUTS['fmask']), T(INPUTS['invalid']),
+                                cfg, landcover=T(INPUTS['landcover']))
+    jcfg = jchain.DswxChainConfig(thresholds=HlsThresholds(**change))
+    want = jchain.dswx_chain(*INPUTS['bands'], INPUTS['fmask'],
+                             INPUTS['invalid'], jcfg,
+                             landcover_mask=INPUTS['landcover'])
+    for name in wtr_kernel.LAYERS + ('BROWSE',):
+        assert_same(out[name], want[name])
 
 
 # ---- interpretation ------------------------------------------------------
@@ -303,20 +315,23 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 
 def test_kernel_params_layout():
-    """The by-value structs handed to the kernels carry ExactThresholds'
-    (p, q) pairs and the aerosol LUT (int16 bands), or each threshold as
-    NumPy's float32 and the LUT (float32 bands)."""
+    """The by-value structs handed to the kernels carry the ratio tests'
+    (p, q) pairs of ExactThresholds, the other tests' integer bounds and
+    the aerosol LUT (int16 bands), or each threshold as NumPy's float32 and
+    the LUT (float32 bands)."""
     import ctypes
     from proteus_tpu.core.thresholds import ExactThresholds
     cfg = tchain.DswxChainConfig(
         thresholds=HlsThresholds(wigt=0.2, pswt_2_swir2=-3),
         aerosol_psw_aggressive_fmask_values=(7,))
-    params, _ = wtr_kernel.kernel_params(cfg)
-    assert ctypes.sizeof(params) == 24 * 4 + 256
+    params, bounds, _ = wtr_kernel.kernel_params(cfg)
+    assert ctypes.sizeof(params) == 4 * 8 + 9 * 4 + 256 + 4  # 8-aligned
+    assert ctypes.sizeof(bounds) == 8 * 4
     et = ExactThresholds.from_thresholds(cfg.thresholds)
-    assert (params.wigt_p, params.wigt_q) == et.wigt[:2]
-    assert (params.p2_swir2_p, params.p2_swir2_q) == et.pswt_2_swir2[:2]
-    assert (params.lcmask_p, params.lcmask_q) == (1200, 1)
+    assert (params.wigt_p, params.wigt_q) == et.wigt[:2] == (1, 5)
+    assert (params.ratio_f64, params.wigt_t) == (0, 0.2)
+    # band < -3 is band <= -4; nir > 1200 is nir >= 1201
+    assert (bounds.p2_swir2_le, bounds.lcmask_ge) == (-4, 1201)
     np.testing.assert_array_equal(np.array(params.aerosol_lut),
                                   cfg.aerosol_lut())
     assert params.aerosol_lut[7] == 8
@@ -326,7 +341,7 @@ def test_kernel_params_layout():
         thresholds=HlsThresholds(wigt=0.12345678, pswt_1_ndvi=1 / 3,
                                  lcmask_nir=0.1 + 0.2),
         aerosol_psw_aggressive_fmask_values=(7,))
-    params, params_f32 = wtr_kernel.kernel_params(cfg, float_bands=True)
+    params, _, params_f32 = wtr_kernel.kernel_params(cfg, float_bands=True)
     assert ctypes.sizeof(params_f32) == 12 * 4
     t = cfg.thresholds
     for name, field in (('wigt', 'wigt'), ('awgt', 'awgt'),

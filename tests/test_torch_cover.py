@@ -126,6 +126,172 @@ def test_add_snow_cover(fmask_kind):
     assert not torch.equal(got, ignore)
 
 
+# ---- a plain model of K2's bit-packed tile ----------------------------------
+# wtr_k2_kernel (ops/csrc/wtr_kernel.cu) cannot run here. This is its tile
+# arithmetic in numpy integer operations: a block owns 94 x 94 output pixels
+# and the 128 x 128 span around them (a 17 px halo), holds each span row of a
+# plane as 128 bits (two uint64), and steps cur |= M & (up | down | left |
+# right) with the carry across the word boundary.
+
+K2_SPAN, K2_HALO, K2_TILE = 128, 17, 94
+ST_CLOUD, ST_SNOW, ST_AREAS, ST_WATER, ST_INSIDE = 0x0D, 0x02, 0x10, 0x20, 0x40
+_U64 = np.uint64
+
+
+def _pack_rows(bits):
+    """[128, 128] bool -> (lo, hi), bit c of a row is span column c."""
+    weights = _U64(1) << np.arange(64, dtype=_U64)
+    return ((bits[:, :64] * weights).sum(1, dtype=_U64),
+            (bits[:, 64:] * weights).sum(1, dtype=_U64))
+
+
+def _unpack_rows(lo, hi):
+    shifts = np.arange(64, dtype=_U64)
+    return np.concatenate([(lo[:, None] >> shifts) & _U64(1),
+                           (hi[:, None] >> shifts) & _U64(1)], 1).astype(bool)
+
+
+def _dilate_packed(cur, mask, steps):
+    lo, hi = cur
+    zero = np.zeros(1, _U64)
+    for _ in range(steps):
+        up_lo, up_hi = (np.concatenate([zero, w[:-1]]) for w in (lo, hi))
+        dn_lo, dn_hi = (np.concatenate([w[1:], zero]) for w in (lo, hi))
+        near_lo = up_lo | dn_lo | (lo << _U64(1)) \
+            | (lo >> _U64(1)) | (hi << _U64(63))
+        near_hi = up_hi | dn_hi | (hi << _U64(1)) | (lo >> _U64(63)) \
+            | (hi >> _U64(1))
+        lo, hi = lo | (mask[0] & near_lo), hi | (mask[1] & near_hi)
+    return lo, hi
+
+
+def cover_state(cloud, fmask, wtr2):
+    """The state byte the per-pixel pass leaves for wtr_k2_kernel."""
+    f = fmask.astype(np.int32)
+    return ((cloud & ST_CLOUD)
+            | np.where(f & 16, ST_SNOW, 0)
+            | np.where(((f & 4) != 0) & (cloud == 0), ST_AREAS, 0)
+            | np.where((wtr2 >= 1) & (wtr2 <= 4), ST_WATER, 0)
+            ).astype(np.uint8)
+
+
+def k2_tile_model(state, row0=0, rows_out=None, halo=K2_HALO):
+    """The snow bit of rows row0 .. row0 + rows_out - 1 of a [H, W] block of
+    state bytes, tile by tile as wtr_k2_kernel computes it (zeros beyond the
+    block's rows and the image's columns)."""
+    height, width = state.shape
+    rows_out = height - row0 if rows_out is None else rows_out
+    tile = K2_SPAN - 2 * halo
+    snowed = np.zeros((rows_out, width), bool)
+    for by in range(-(-rows_out // tile)):
+        for bx in range(-(-width // tile)):
+            y0 = row0 + by * tile - halo
+            x0 = bx * tile - halo
+            span = np.zeros((K2_SPAN, K2_SPAN), np.uint8)
+            ys = slice(max(y0, 0), min(y0 + K2_SPAN, height))
+            xs = slice(max(x0, 0), min(x0 + K2_SPAN, width))
+            span[ys.start - y0:ys.stop - y0, xs.start - x0:xs.stop - x0] = \
+                state[ys, xs] | ST_INSIDE
+            snow = _pack_rows((span & ST_SNOW) != 0)
+            areas = _pack_rows((span & ST_AREAS) != 0)
+            both = ST_AREAS | ST_WATER
+            areas_water = _pack_rows((span & both) == both)
+            clear = _pack_rows((span & (ST_CLOUD | ST_INSIDE)) == ST_INSIDE)
+            snow = _dilate_packed(snow, areas, 10)
+            unmask = _dilate_packed((~snow[0] & clear[0], ~snow[1] & clear[1]),
+                                    areas_water, 7)
+            bits = _unpack_rows(snow[0] & ~unmask[0], snow[1] & ~unmask[1])
+            # the tile's own pixels, inside the window and the image
+            n_rows = min(tile, row0 + rows_out - (y0 + halo))
+            n_cols = min(tile, width - (x0 + halo))
+            oy, ox = by * tile, bx * tile
+            snowed[oy:oy + n_rows, ox:ox + n_cols] = \
+                bits[halo:halo + n_rows, halo:halo + n_cols]
+    return snowed
+
+
+@pytest.mark.parametrize('steps', [1, 7, 10, 17])
+def test_packed_dilation_matches_morphology(steps):
+    """One span: the packed recurrence == the masked cross dilation of
+    ops/morphology.py (and scipy's) on the unpacked bits."""
+    cur = blobs(11, (K2_SPAN, K2_SPAN), density=0.01)
+    cur[:, 63] |= blobs(12, (K2_SPAN, K2_SPAN))[:, 0]   # at the word seam
+    mask = ~blobs(13, (K2_SPAN, K2_SPAN), density=0.05)
+    got = _unpack_rows(*_dilate_packed(_pack_rows(cur), _pack_rows(mask),
+                                       steps))
+    assert_same(got, tmorph.binary_dilation_masked(T(cur), steps, T(mask)))
+    assert_same(got, binary_dilation(cur, iterations=steps, mask=mask))
+    assert_same(_unpack_rows(*_pack_rows(cur)), cur)
+
+
+def _cover_inputs(seed, shape, fmask_kind):
+    rng = np.random.default_rng(seed)
+    fmask = (rng.integers(0, 256, shape).astype(np.uint8)
+             if fmask_kind == 'random' else structured_cover_fmask(shape))
+    wtr2 = rng.choice(np.array([0, 1, 2, 3, 4, 254, 255], np.uint8), shape)
+    cloud = np.asarray(jmasking.compute_preliminary_cloud_layer(fmask,
+                                                                'cover'))
+    cloud = np.where(rng.random(shape) < 0.05, cloud | 8, cloud)
+    return fmask, wtr2, cloud.astype(np.uint8)
+
+
+@pytest.mark.parametrize('fmask_kind', ['random', 'structured'])
+@pytest.mark.parametrize('shape', [(200, 150), (95, 189), (94, 94), (1, 300),
+                                   (283, 17)])
+def test_k2_tile_model_matches_cover_masking(shape, fmask_kind):
+    """Sizes that are no multiple of the 94 px tile: the tiled bit-plane
+    model == the reference's 'cover' masking and the port's."""
+    fmask, wtr2, cloud = _cover_inputs(14, shape, fmask_kind)
+    snowed = k2_tile_model(cover_state(cloud, fmask, wtr2))
+    got = np.where(wtr2 == 255, 255, cloud + 2 * snowed).astype(np.uint8)
+    assert_same(got, jmasking.add_snow_to_cloud_layer(wtr2, cloud, fmask,
+                                                      'cover'))
+    assert_same(got, tmasking.add_snow_to_cloud_layer(
+        T(wtr2), T(cloud), T(fmask), 'cover'))
+    if shape[0] > 90:
+        assert snowed.any() and not snowed.all()
+
+
+@pytest.mark.parametrize('window', [(0, 60), (17, 100), (106, 94), (95, 105),
+                                    (199, 1), (53, 147)])
+def test_k2_tile_model_row_windows(window):
+    """A window whose first row is no multiple of the tile: the rows of the
+    whole block's result."""
+    fmask, wtr2, cloud = _cover_inputs(15, (200, 150), 'structured')
+    state = cover_state(cloud, fmask, wtr2)
+    whole = k2_tile_model(state)
+    row0, rows = window
+    assert_same(k2_tile_model(state, row0, rows), whole[row0:row0 + rows])
+    # a shard's block: its own rows and a 17 px halo are enough
+    lo, hi = max(row0 - K2_HALO, 0), min(row0 + rows + K2_HALO, 200)
+    assert_same(k2_tile_model(state[lo:hi], row0 - lo, rows),
+                whole[row0:row0 + rows])
+
+
+@pytest.mark.parametrize('transpose', [False, True], ids=['row', 'column'])
+def test_k2_halo_is_load_bearing(transpose):
+    """Snow next to a tile seam, with a clear pixel that un-masks it from
+    the far side of the seam: the 17 px halo sees that pixel and agrees
+    with the reference; a 3 px halo does not, and keeps snow the reference
+    takes back."""
+    fmask = np.full((1, 230), 4, np.uint8)          # adjacent, clear
+    seam = K2_SPAN - 2 * 3                           # of the 3 px halo's tiles
+    fmask[0, seam - 14:seam + 4] |= 16               # snow across the seam
+    fmask[0, seam + 4] = 0                           # clear, not adjacent
+    wtr2 = np.ones_like(fmask)                       # all water
+    if transpose:
+        fmask, wtr2 = fmask.T.copy(), wtr2.T.copy()
+    cloud = np.zeros_like(fmask)
+    state = cover_state(cloud, fmask, wtr2)
+    want = np.asarray(jmasking.add_snow_to_cloud_layer(wtr2, cloud, fmask,
+                                                       'cover')) == 2
+    assert_same(k2_tile_model(state), want)
+    assert want.ravel()[seam - 17:seam - 3].all() and want.sum() == 14
+    short = k2_tile_model(state, halo=3)
+    assert short.ravel()[seam - 3:seam].all()
+    assert not want.ravel()[seam - 3:seam].any()
+
+
 # ---- the chain -----------------------------------------------------------
 
 def _bands(dtype, seed, shape=SHAPE):

@@ -1,8 +1,7 @@
 """The whole slice: proteus_tpu_torch.generate_dswx_layers against
 proteus_tpu's on the same synthetic tile (DEM, CGLS and WorldCover),
 product file by product file, tolerance 0; plus the guards of the port:
-it never imports jax or proteus_tpu, never picks a device on its own, and
-raises on the paths it does not run yet.
+it never imports jax or proteus_tpu and never picks a device on its own.
 """
 
 import os
@@ -105,27 +104,6 @@ def test_layers_are_not_trivial(products):
                          ('B01_WTR.tif', {0, 1, 252, 253})):
         with TiffReader(os.path.join(dirs['torch'], name)) as r:
             assert expect <= set(np.unique(r.read()).tolist()), name
-
-
-@pytest.mark.parametrize('change,match', [
-    (dict(hls_thresholds={'wigt': 0.12345678}), 'item 17'),
-    (dict(hls_thresholds={'lcmask_nir': 0.1 + 0.2}), 'item 17'),
-])
-def test_unported_paths_raise(products, tmp_path, change, match):
-    """Integer-band thresholds that are not exact rationals still raise,
-    naming their ROADMAP item."""
-    _, inputs, _ = products
-    if 'hls_thresholds' in change:
-        from proteus_tpu_torch.core.thresholds import HlsThresholds
-        defaults = HlsThresholds()
-        values = {k: getattr(defaults, k)
-                  for k in defaults.__dataclass_fields__}
-        values.update(change['hls_thresholds'])
-        change = dict(hls_thresholds=values)
-    with pytest.raises(NotImplementedError, match=match):
-        generate_dswx_layers(**inputs, **_outputs(str(tmp_path)), **change,
-                             device=CPU)
-    assert not os.path.exists(os.path.join(str(tmp_path), 'B01_WTR.tif'))
 
 
 @pytest.mark.parametrize('change', [

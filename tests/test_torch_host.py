@@ -357,3 +357,89 @@ def test_compare_cli_as_a_module(tmp_path):
         assert proc.returncode == 0, proc.stderr
         assert f'VERDICT {verdict}' in proc.stdout
         assert '[FAIL]' in proc.stdout or verdict
+
+
+# ---- the library API ---------------------------------------------------------
+
+API_NAMES = ('generate_dswx_layers', 'compare_dswx_hls_products',
+             'save_as_cog')
+
+
+def test_library_api_is_lazy():
+    """``import proteus_tpu_torch`` offers the reference's four names and
+    loads neither torch, the codec, the orchestrator, jax nor
+    proteus_tpu: each function imports its module when it is called."""
+    import subprocess
+    import sys
+    import proteus_tpu
+    names = sorted(n for n in vars(proteus_tpu) if not n.startswith('_')
+                   and callable(getattr(proteus_tpu, n)))
+    assert names == sorted(API_NAMES)
+    script = (
+        'import sys, proteus_tpu_torch as p\n'
+        'assert all(callable(getattr(p, n)) for n in %r)\n'
+        'assert p.__version__ == p.version.VERSION\n'
+        'loaded = sorted(m for m in sys.modules if m.split(".")[0] in '
+        '("jax", "torch", "numpy", "proteus_tpu") or '
+        'm.startswith("proteus_tpu_torch."))\n'
+        'print("LOADED", loaded)\n' % (API_NAMES,))
+    proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED ['proteus_tpu_torch.version']" in proc.stdout, proc.stdout
+
+
+def test_library_api_version_matches_the_reference():
+    import proteus_tpu
+    import proteus_tpu_torch
+    assert proteus_tpu_torch.__version__ == proteus_tpu.__version__
+
+
+@pytest.mark.parametrize('name', API_NAMES)
+def test_library_api_forwards(monkeypatch, name):
+    """Each name forwards its arguments to the function of the same name
+    in its module (``device=`` included) and returns its result."""
+    import importlib
+    import proteus_tpu_torch
+    module = importlib.import_module({
+        'generate_dswx_layers': 'proteus_tpu_torch.runtime.orchestrator',
+        'compare_dswx_hls_products': 'proteus_tpu_torch.runtime.compare',
+        'save_as_cog': 'proteus_tpu_torch.io.cog'}[name])
+    seen = []
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: seen.append((a, k)) or 'result')
+    assert getattr(proteus_tpu_torch, name)('x', 2, device='cpu') == 'result'
+    assert seen == [(('x', 2), {'device': 'cpu'})]
+
+
+def test_library_api_runs_a_product(tmp_path):
+    """``proteus_tpu_torch.generate_dswx_layers(..., device=)`` writes a
+    WTR layer that ``compare_dswx_hls_products`` accepts against the
+    reference API's, and ``save_as_cog`` writes the reference's bytes."""
+    import proteus_tpu
+    import proteus_tpu_torch
+    import torch
+    files, _ = synthetic.make_hls_v2_dataset(str(tmp_path / 'in'), size=48)
+    outs = {}
+    for tag, api, extra in (('jax', proteus_tpu, {}),
+                            ('torch', proteus_tpu_torch,
+                             {'device': torch.device('cpu')})):
+        outs[tag] = str(tmp_path / f'{tag}_wtr.tif')
+        assert api.generate_dswx_layers(
+            files, output_interpreted_band=outs[tag],
+            check_ancillary_inputs_coverage=False,
+            apply_ocean_masking=False, **extra) is True
+    assert proteus_tpu_torch.compare_dswx_hls_products(outs['jax'],
+                                                       outs['torch'])
+    with TiffReader(outs['torch']) as rt, JaxTiffReader(outs['jax']) as rj:
+        np.testing.assert_array_equal(rt.read(), rj.read())
+    array = np.arange(48 * 48, dtype=np.uint8).reshape(48, 48)
+    cogs = {}
+    for tag, api in (('jax', proteus_tpu), ('torch', proteus_tpu_torch)):
+        path = str(tmp_path / f'{tag}_cog.tif')
+        write_cog(path, array, geotransform=synthetic.geotransform(),
+                  epsg=synthetic.EPSG, overview_levels=())
+        api.save_as_cog(path, scratch_dir=str(tmp_path))
+        with open(path, 'rb') as fh:
+            cogs[tag] = fh.read()
+    assert cogs['torch'] == cogs['jax']

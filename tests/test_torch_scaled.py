@@ -129,16 +129,15 @@ def test_masking_float_nir(lcmask_nir):
     assert_same(w2t, w2j)
 
 
-def test_inexact_lcmask_raises_on_int16_only():
+def test_inexact_lcmask_on_int16_and_float32():
     t = HlsThresholds(lcmask_nir=0.1 + 0.2)
     inp = make_inputs(8, SHAPE)
     wtr1 = T(np.ones(SHAPE, np.uint8))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        tmasking.apply_landcover_and_shadow_masks(
-            wtr1, T(inp['bands'][3]), T(inp['landcover']), None, t)
-    tmasking.apply_landcover_and_shadow_masks(
-        wtr1, T(inp['bands'][3].astype(np.float32)), T(inp['landcover']),
-        None, t)
+    for nir in (inp['bands'][3], inp['bands'][3].astype(np.float32)):
+        got = tmasking.apply_landcover_and_shadow_masks(
+            wtr1, T(nir), T(inp['landcover']), None, t)
+        assert_same(got, jmasking.apply_landcover_and_shadow_masks(
+            np.ones(SHAPE, np.uint8), nir, inp['landcover'], None, t))
 
 
 # ---- the kernel module ---------------------------------------------------
