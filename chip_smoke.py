@@ -73,7 +73,16 @@ Phases, each printed on its own line; any failure exits nonzero:
    otsu masks, with the uncertainty band's population; a full-size
    single-tile CLI run with ``shadow_masking_algorithm: otsu``, SHAD
    against the host otsu chain on the host-warped DEM; one 10 m band of
-   3 x 3660 px a side ingested on the card against the numpy 3 x 3 mean.
+   3 x 3660 px a side ingested on the card against the numpy 3 x 3 mean;
+9. tools: the campaign instruments of ``proteus_tpu_torch/tools`` through
+   their ``main`` on card 0 at full size: ``bench_cold_grid`` over 3 tiles
+   on 3 distinct grids and 3 revisits of one grid (the ancillary cache
+   misses 3 and 1 times a kind; tile 0 of each run against the numpy
+   oracle), ``soak_back_to_back`` (the int16 and the scaled soak of 6
+   tiles: an injected reader fault, a SIGKILL after 2 tiles done, the
+   manifest resume; each must pass with its kill mid-campaign),
+   ``host_budget`` (1 pass) and ``bench_batch`` (B = 1, 2, 4, int16 and
+   scaled). A line a tool with the card's name and power limit.
 
 ``python3 chip_smoke.py --multi-gpu`` runs phases 1, 2 and 6 alone.
 
@@ -1310,7 +1319,7 @@ def _run_cli(torch, label, argv, expect):
     return launches
 
 
-def _read_layers(output_dir, product='dswx_hls_test'):
+def _read_layers(output_dir, product='dswx_hls_test', browse=True):
     from proteus_tpu_torch.io.tiff import TiffReader
     prefix = os.path.join(output_dir, f'{product}_v0.1_')
     layers = ['WTR', 'BWTR', 'CONF', 'DIAG', 'WTR-1', 'WTR-2', 'LAND',
@@ -1319,6 +1328,8 @@ def _read_layers(output_dir, product='dswx_hls_test'):
     for nn, layer in enumerate(layers, start=1):
         with TiffReader(f'{prefix}B{nn:02}_{layer}.tif') as r:
             got[layer] = r.read()
+    if not browse:
+        return got
     for suffix in ('BROWSE.png', 'BROWSE.tif'):
         if not os.path.isfile(prefix + suffix):
             raise AssertionError(f'missing {prefix + suffix}')
@@ -2244,6 +2255,157 @@ def phase_hosts(torch, workdir, tile, ctx):
         f'for byte (but the processing time)')
 
 
+def _ingested(tile_dir):
+    """A tile's bands clipped at 1, Fmask, invalid mask and geotransform
+    through the port's ingest."""
+    import numpy as np
+    from proteus_tpu_torch.io import hls as hls_io
+    from proteus_tpu_torch.tools import datasets
+    image = {}
+    if not hls_io.load_hls_product_v2(datasets.band_files(tile_dir), image,
+                                      {}, {}, {}, False):
+        raise AssertionError(f'could not ingest {tile_dir}')
+    bands = {k: np.clip(image[k], 1, None)
+             for k in ('blue', 'green', 'red', 'nir', 'swir1', 'swir2')}
+    return (bands, image['fmask'], image['invalid_ind_array'].astype(bool),
+            image['geotransform'])
+
+
+def _tool_launches(wtr_kernel, launches, expect, what):
+    """Add the launch counts since they were set to 0 to ``launches``,
+    check each slice in ``expect`` launched, and set them to 0 again."""
+    for name in expect:
+        if wtr_kernel.LAUNCHES[name] < 1:
+            raise AssertionError(f'{what} never launched {name}')
+    for name, n in wtr_kernel.LAUNCHES.items():
+        launches[name] = launches.get(name, 0) + n
+        wtr_kernel.LAUNCHES[name] = 0
+
+
+def phase_tools(torch, workdir, tile):
+    """The campaign instruments of ``proteus_tpu_torch/tools`` through their
+    ``main`` at full size on card 0: the cold- against warm-grid bench
+    (3 + 3 tiles, tile 0 of each run against the oracle), the
+    kill-and-resume soaks back to back (int16 then scaled, 6 tiles, the
+    kill after 2 done), the host budget (1 pass) and the batch scaling
+    (B = 1, 2, 4, int16 and scaled). Each prints its own JSON lines; this
+    phase prints one a tool with the card's name and power limit."""
+    from proteus_tpu_torch.geo.crs import CRS
+    from proteus_tpu_torch.geo.polygon import create_ocean_mask
+    from proteus_tpu_torch.ops import wtr_kernel
+    from proteus_tpu_torch.testing import synthetic
+    from proteus_tpu_torch.tools import (bench_batch, bench_cold_grid,
+                                         host_budget, soak_back_to_back)
+    oracle = _load_oracle()
+    card = nvidia_smi_line()
+    device = f'{DEVICE}:0'
+    say(f'== phase 9: the campaign instruments at {SIZE}x{SIZE} on '
+        f'{device} ({card})')
+    launches = {}
+    for name in wtr_kernel.LAUNCHES:
+        wtr_kernel.LAUNCHES[name] = 0
+
+    # 9a: 3 tiles on 3 distinct grids against 3 revisits of one grid
+    root = os.path.join(workdir, 'tools_cold_grid')
+    out = os.path.join(workdir, 'cold_grid.json')
+    t0 = time.perf_counter()
+    if bench_cold_grid.main(['--tiles', '3', '--size', str(SIZE), '--root',
+                             root, '--device', device, '--out',
+                             out]) != 0:
+        raise AssertionError('bench_cold_grid failed')
+    wall = time.perf_counter() - t0
+    _tool_launches(wtr_kernel, launches, ('wtr_k1', 'wtr_k5', 'wtr_k6'),
+                   'bench_cold_grid')
+    with open(out) as fh:
+        report = json.load(fh)
+    wkt = CRS.from_epsg(synthetic.EPSG).to_wkt()
+    for label, misses in (('cold', 3), ('warm', 1)):
+        row = report[label]
+        if row['cache_misses'] != dict.fromkeys(
+                ('dem_warp', 'landcover', 'ocean', 'shadow'), misses):
+            raise AssertionError(f'bench_cold_grid {label}: cache misses '
+                                 f'{row["cache_misses"]}')
+        tid = f'{label}_00'
+        bands, fmask, invalid, gt = _ingested(os.path.join(root, tid))
+        if label == 'warm':
+            ocean = tile['ocean']  # phase 4's grid and shoreline
+        else:
+            ocean = create_ocean_mask(
+                os.path.join(root, tid, 'anc', 'shoreline.shp'), 1, workdir,
+                gt, wkt, SIZE, SIZE)
+        _hold_against_oracle(oracle, f'{label} {tid}', _read_layers(
+            os.path.join(root, label, tid), tid, browse=False), bands, fmask,
+            invalid, 'mask', ocean=ocean)
+        say(json.dumps({'tool': 'bench_cold_grid', 'run': label,
+                        'card': card, **row}))
+    say(f'bench_cold_grid: {wall:.1f} s with the inputs; cold '
+        f'{report["cold"]["tiles_per_min"]:.2f} tiles/min, warm '
+        f'{report["warm"]["tiles_per_min"]:.2f}, warm/cold '
+        f'{report["cold_over_warm_ratio"]:.3f}; tile 0 of each run == '
+        f'oracle (WTR, BWTR, CONF, DIAG, WTR-1, WTR-2, CLOUD)')
+
+    # 9b: the kill-and-resume soaks, int16 then scaled
+    out = os.path.join(workdir, 'soak_b2b.json')
+    t0 = time.perf_counter()
+    if soak_back_to_back.main(
+            ['--tiles', '6', '--size', str(SIZE), '--kill-after-done', '2',
+             '--timeout', '300', '--root', os.path.join(workdir,
+                                                        'tools_soak'),
+             '--device', device, '--out', out]) != 0:
+        raise AssertionError('soak_back_to_back failed')
+    wall = time.perf_counter() - t0
+    with open(out) as fh:
+        summary = json.load(fh)
+    for run in summary['runs']:
+        if run['status'] != 'pass' or not run['killed_mid_campaign']:
+            raise AssertionError(f'soak {run["mode"]}: status '
+                                 f'{run["status"]}, killed mid-campaign '
+                                 f'{run["killed_mid_campaign"]}')
+    say(json.dumps({'tool': 'soak_back_to_back', 'card': card, **summary}))
+    say(f'soak_back_to_back: {wall:.1f} s; ' + '; '.join(
+        f'{r["mode"]}: phase A {r["phase_a_s"]:.2f} s, B '
+        f'{r["phase_b_s"]:.2f} s, fault {r["fault"]}'
+        for r in summary['runs'])
+        + f'; phase B scaled/int {summary["phase_b_scaled_over_int"]:.3f}')
+
+    # 9c: the host budget, one pass
+    out = os.path.join(workdir, 'host_budget.json')
+    if host_budget.main(['--size', str(SIZE), '--passes', '1', '--root',
+                         workdir, '--device', device, '--out',
+                         out]) != 0:
+        raise AssertionError('host_budget failed')
+    _tool_launches(wtr_kernel, launches, ('wtr_k1',), 'host_budget')
+    with open(out) as fh:
+        budget = json.load(fh)
+    say(json.dumps({'tool': 'host_budget', 'card': card,
+                    'codec': budget['codec'],
+                    'cpu_count': budget['cpu_count'],
+                    'total_core_s_per_tile': budget['total_core_s_per_tile'],
+                    'total_core_s_per_tile_realistic':
+                        budget['total_core_s_per_tile_realistic'],
+                    **{f'{k} s': v['seconds']
+                       for k, v in budget['stages'].items()},
+                    **{f'{k} s (realistic)': v['seconds']
+                       for k, v in budget['stages_realistic'].items()}}))
+
+    # 9d: the batch scaling, int16 and scaled bands
+    for scaled, expect in ((False, ('wtr_k1', 'wtr_k5', 'wtr_k6')),
+                           (True, ('wtr_k4', 'wtr_k5', 'wtr_k6'))):
+        out = os.path.join(workdir, f'bench_batch_{int(scaled)}.json')
+        if bench_batch.main(['--size', str(SIZE), '--device', device,
+                             '--out', out]
+                            + (['--scaled'] if scaled else [])) != 0:
+            raise AssertionError('bench_batch failed')
+        _tool_launches(wtr_kernel, launches, expect, 'bench_batch')
+        with open(out) as fh:
+            points = json.load(fh)['points']
+        say(json.dumps({'tool': 'bench_batch', 'scaled': scaled,
+                        'card': card, 'ms_per_tile': {
+                            p['tiles_per_dispatch']: p['s_per_tile'] * 1e3
+                            for p in points}}))
+    return launches
+
+
 def _check_no_jax():
     loaded = sorted(m for m in sys.modules
                     if m == 'jax' or m.split('.')[0] == 'proteus_tpu')
@@ -2301,7 +2463,7 @@ def main(argv=None):
             launches[name] = launches.get(name, 0) + n
         phase_hosts(torch, workdir, tile, ctx)
         phase_step_sweep(torch, tile, workdir)
-        for phase in (phase_profile, phase_otsu_and_s2):
+        for phase in (phase_profile, phase_otsu_and_s2, phase_tools):
             for name, n in phase(torch, workdir, tile).items():
                 launches[name] = launches.get(name, 0) + n
         if torch.cuda.device_count() > 1:

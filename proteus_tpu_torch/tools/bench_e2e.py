@@ -30,37 +30,22 @@ import time
 import torch
 
 from proteus_tpu_torch.device import resolve_device
+from proteus_tpu_torch.tools import datasets
 
 
 def build_dataset(root, size, ancillaries):
-    from proteus_tpu_torch.testing import synthetic
+    """One synthetic tile (and, with ``ancillaries``, its DEM, CGLS,
+    WorldCover and shoreline) in ``root/in``, written once; its band files
+    and the ancillaries' ``TileJob`` keywords."""
     in_dir = os.path.join(root, 'in')
-    stamp = os.path.join(in_dir, f'.stamp_{size}_{int(ancillaries)}')
-    if os.path.exists(stamp):
-        extra = {}
+
+    def write():
+        datasets.write_tile(in_dir, size)
         if ancillaries:
-            extra = dict(
-                dem_file=os.path.join(in_dir, 'dem.tif'),
-                landcover_file=os.path.join(in_dir, 'landcover.tif'),
-                worldcover_file=os.path.join(in_dir, 'worldcover.tif'),
-                shoreline_shapefile=os.path.join(in_dir, 'shoreline.shp'))
-        files = sorted(
-            os.path.join(in_dir, f) for f in os.listdir(in_dir)
-            if f.startswith('HLS.') and f.endswith('.tif'))
-        return files, extra
-    shutil.rmtree(in_dir, ignore_errors=True)
-    os.makedirs(in_dir, exist_ok=True)
-    files, _ = synthetic.make_hls_v2_dataset(in_dir, size=size)
-    extra = {}
-    if ancillaries:
-        extra = dict(
-            dem_file=synthetic.make_dem(in_dir, size=size),
-            landcover_file=synthetic.make_landcover(in_dir, size=size),
-            worldcover_file=synthetic.make_worldcover(in_dir, size=size),
-            shoreline_shapefile=synthetic.make_shoreline(in_dir,
-                                                         size=size))
-    open(stamp, 'w').close()
-    return files, extra
+            datasets.write_ancillaries(in_dir, size)
+    datasets.write_once(in_dir, f'.stamp_{size}_{int(ancillaries)}', write)
+    return (datasets.band_files(in_dir),
+            datasets.ancillary_files(in_dir) if ancillaries else {})
 
 
 def run_pass(files, extra, out_root, n_tiles, tag, devices):

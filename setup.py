@@ -36,6 +36,9 @@ setup(
             'dswx_hls=proteus_tpu.cli.dswx_hls:main',
             'dswx_compare=proteus_tpu.cli.dswx_compare:main',
             'dswx_campaign=proteus_tpu.cli.dswx_campaign:main',
+            'dswx_hls_torch=proteus_tpu_torch.cli.dswx_hls:main',
+            'dswx_compare_torch=proteus_tpu_torch.cli.dswx_compare:main',
+            'dswx_campaign_torch=proteus_tpu_torch.cli.dswx_campaign:main',
         ],
     },
     scripts=['bin/dswx_hls.py', 'bin/dswx_compare.py'],

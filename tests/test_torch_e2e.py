@@ -191,6 +191,8 @@ with tempfile.TemporaryDirectory() as root:
     out = os.path.join(root, 'out2', 'dswx_hls_test_v0.1_B01_WTR.tif')
     with TiffReader(out) as r:
         assert (r.read() == 254).any()
+    from proteus_tpu_torch.cli.validate_cog import main as validate_cog
+    assert validate_cog([out]) == 0
 sys.stdout = sys.__stdout__
 print('proteus_tpu loaded:', sorted(m for m in sys.modules
                                     if m.split('.')[0] == 'proteus_tpu'))

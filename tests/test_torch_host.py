@@ -17,6 +17,7 @@ import synthetic
 from proteus_tpu import native as jnative
 from proteus_tpu.config.runconfig import parse_runconfig_file as jax_parse
 from proteus_tpu.geo.crs import CRS as JaxCRS
+from proteus_tpu.geo import mgrs as jmgrs
 from proteus_tpu.geo.crs import transform_points as jax_transform
 from proteus_tpu.io import hls as jhls
 from proteus_tpu.io.cog import write_cog as jax_write_cog
@@ -24,6 +25,7 @@ from proteus_tpu.io.tiff import TiffReader as JaxTiffReader
 from proteus_tpu.runtime import compare as jcompare
 from proteus_tpu_torch import native as tnative
 from proteus_tpu_torch.config.runconfig import parse_runconfig_file
+from proteus_tpu_torch.geo import mgrs as tmgrs
 from proteus_tpu_torch.geo.crs import CRS, transform_points
 from proteus_tpu_torch.io import hls as thls
 from proteus_tpu_torch.io.cog import write_cog
@@ -59,10 +61,14 @@ def test_port_imports_neither_jax_nor_proteus_tpu():
     files = _port_sources()
     assert len(files) > 60
     scanned = {os.path.relpath(f, REPO) for f in files}
-    for tool in ('kernel_profile', 'bench', 'bench_e2e'):
+    for tool in ('kernel_profile', 'bench', 'bench_e2e', 'bench_cold_grid',
+                 'host_budget', 'bench_batch', 'campaign_soak',
+                 'soak_back_to_back', 'datasets'):
         assert f'proteus_tpu_torch/tools/{tool}.py' in scanned
     assert {'proteus_tpu_torch/runtime/compare.py',
             'proteus_tpu_torch/cli/dswx_compare.py',
+            'proteus_tpu_torch/cli/validate_cog.py',
+            'proteus_tpu_torch/geo/mgrs.py',
             'proteus_tpu_torch/ops/null_kernel.py'} <= scanned
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f)
@@ -359,7 +365,7 @@ def test_compare_cli_as_a_module(tmp_path):
         assert '[FAIL]' in proc.stdout or verdict
 
 
-# ---- the library API ---------------------------------------------------------
+# ---- the library API --------------------------------------------------------
 
 API_NAMES = ('generate_dswx_layers', 'compare_dswx_hls_products',
              'save_as_cog')
@@ -443,3 +449,152 @@ def test_library_api_runs_a_product(tmp_path):
         with open(path, 'rb') as fh:
             cogs[tag] = fh.read()
     assert cogs['torch'] == cogs['jax']
+
+
+# ---- geo/mgrs.py ------------------------------------------------------------
+
+MGRS_FUNCTIONS = ('mgrs_to_utm',
+                  'get_hls_geographic_boundaries_from_mgrs_tile',
+                  'mgrs_tile_geotransform')
+
+
+def _mgrs_names(zone, n=6):
+    """``n`` valid 100 km square names of ``zone``, from a seed: a latitude
+    band, the zone's column letter set, a row letter, with and without the
+    leading 'T'."""
+    rng = np.random.default_rng(zone)
+    cols = jmgrs._COL_LETTER_SETS[(zone - 1) % 3]
+    return [f'{"T" * (k % 2)}{zone}{rng.choice(list(jmgrs._LAT_BANDS))}'
+            f'{rng.choice(list(cols))}{rng.choice(list(jmgrs._ROW_LETTERS))}'
+            for k in range(n)]
+
+
+@pytest.mark.parametrize('zone', range(1, 61))
+def test_mgrs_copy_agrees_with_the_original(zone):
+    """The three functions of every zone's seeded names: the same values
+    as the JAX package's."""
+    names = _mgrs_names(zone) + (['T15RYP', '15ryp '] if zone == 15 else [])
+    for name in names:
+        for fn in MGRS_FUNCTIONS:
+            assert getattr(tmgrs, fn)(name) == getattr(jmgrs, fn)(name), \
+                (fn, name)
+
+
+def test_mgrs_louisiana_tile():
+    """tests/test_geo.py::TestMGRS's tile through the port's copy."""
+    assert tmgrs.mgrs_to_utm('T15RYP') == (15, True, 700000.0, 3300000.0)
+    gt, epsg, length, width = tmgrs.mgrs_tile_geotransform('T15RYP')
+    assert (length, width, epsg) == (3660, 3660, 32615)
+    assert gt[0] == 700000.0 - 4900.0
+    assert gt[3] == 3300000.0 - 4900.0 + 109800.0
+
+
+@pytest.mark.parametrize('bad', ['XX', '99ZAA', '15IYP', 'T15RYPZ', '0RYP',
+                                 '61RYP', '15RAP', '16RYW'])
+def test_mgrs_invalid_names_raise_in_both(bad):
+    for module in (jmgrs, tmgrs):
+        for fn in MGRS_FUNCTIONS:
+            with pytest.raises(ValueError):
+                getattr(module, fn)(bad)
+
+
+# ---- cli/validate_cog.py ----------------------------------------------------
+
+def _validate_cases(root):
+    """A product COG, a file that is no TIFF and a striped GeoTIFF (no
+    COG), by name."""
+    from PIL import Image
+    from proteus_tpu_torch.runtime import product_writer as pw
+    layer = np.random.default_rng(4).integers(0, 3, (600, 520)).astype(
+        np.uint8)
+    cog = os.path.join(root, 'product_WTR.tif')
+    pw.save_dswx_product(layer, 'WTR', cog, {'PRODUCT_ID': 'p'},
+                         tsynthetic.geotransform(), tsynthetic.EPSG)
+    not_tiff = os.path.join(root, 'not_a_tiff.tif')
+    with open(not_tiff, 'wb') as fh:
+        fh.write(b'not a tiff at all')
+    striped = os.path.join(root, 'striped.tif')
+    Image.fromarray(layer).save(striped)
+    return {'product-cog': (cog, 0), 'not-a-tiff': (not_tiff, 1),
+            'striped-geotiff': (striped, 1)}
+
+
+@pytest.mark.parametrize('name', ['product-cog', 'not-a-tiff',
+                                  'striped-geotiff'])
+@pytest.mark.parametrize('full_check', ['yes', 'no'])
+def test_validate_cog_cli_agrees_with_the_original(tmp_path, capsys, name,
+                                                   full_check):
+    """The same exit code and the same lines on stdout as the JAX CLI."""
+    from proteus_tpu.cli.validate_cog import main as jmain
+    from proteus_tpu_torch.cli.validate_cog import main as tmain
+    path, rc = _validate_cases(str(tmp_path))[name]
+    argv = [path, '--full-check', full_check]
+    assert jmain(argv) == rc
+    want = capsys.readouterr().out
+    assert tmain(argv) == rc
+    assert capsys.readouterr().out == want
+    assert ('is a valid cloud optimized GeoTIFF' in want) == (rc == 0)
+
+
+def test_validate_cog_cli_as_a_module(tmp_path):
+    """``python -m proteus_tpu_torch.cli.validate_cog`` on all three
+    files: exit 1 (two are no COG), one line a file plus the errors, and
+    neither jax nor proteus_tpu loaded."""
+    import subprocess
+    import sys
+    cases = _validate_cases(str(tmp_path))
+    files = [cases[n][0] for n in ('product-cog', 'not-a-tiff',
+                                   'striped-geotiff')]
+    script = ('import runpy, sys\n'
+              'sys.argv = ["validate_cog"] + sys.argv[1:]\n'
+              'try:\n'
+              '    runpy.run_module("proteus_tpu_torch.cli.validate_cog", '
+              'run_name="__main__")\n'
+              'except SystemExit as exc:\n'
+              '    rc = exc.code\n'
+              'bad = [m for m in sys.modules if m.split(".")[0] in '
+              '("jax", "proteus_tpu")]\n'
+              'print("RC", rc, "LOADED", bad)\n')
+    proc = subprocess.run([sys.executable, '-c', script, *files], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == 'RC 1 LOADED []'
+    assert lines[0] == f'{files[0]} is a valid cloud optimized GeoTIFF'
+    assert [ln for ln in lines if ln.startswith(tmp_path.as_posix())] == [
+        lines[0], f'{files[1]} is NOT a valid cloud optimized GeoTIFF:',
+        f'{files[2]} is NOT a valid cloud optimized GeoTIFF:']
+
+
+# ---- the console scripts ----------------------------------------------------
+
+def _console_scripts():
+    """setup.py's console scripts as {name: 'module:function'}."""
+    with open(os.path.join(REPO, 'setup.py')) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict):
+            for key, value in zip(node.keys, node.values):
+                if isinstance(key, ast.Constant) \
+                        and key.value == 'console_scripts':
+                    return dict(e.value.split('=') for e in value.elts)
+    raise AssertionError('setup.py names no console_scripts')
+
+
+@pytest.mark.parametrize('name', ['dswx_hls_torch', 'dswx_compare_torch',
+                                  'dswx_campaign_torch'])
+def test_port_console_script_resolves(name):
+    """Each of the port's scripts names a callable ``main`` of the port's
+    CLI of the same name; the reference's three names stay the
+    reference's."""
+    import importlib
+    scripts = _console_scripts()
+    module, function = scripts[name].split(':')
+    assert module == f'proteus_tpu_torch.cli.{name[:-len("_torch")]}'
+    assert function == 'main'
+    assert callable(getattr(importlib.import_module(module), function))
+    reference = name[:-len('_torch')]
+    assert scripts[reference] == f'proteus_tpu.cli.{reference}:main'
+    commands = ('dswx_hls', 'dswx_compare', 'dswx_campaign')
+    assert sorted(scripts) == sorted(
+        commands + tuple(f'{n}_torch' for n in commands))
