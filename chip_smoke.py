@@ -26,8 +26,10 @@ Phases, each printed on its own line; any failure exits nonzero:
    shards of 915 rows (with the 17-row halo in 'cover'), each windowed
    launch against the plain twin on its padded block, cropped, and the
    joined shards against the unsharded K6 launch, in every band kind x
-   mode x ancillaries x browse; the 4 windowed launches timed against the
-   one unsharded launch. The null kernel (phase 3d): the traffic floor
+   mode x ancillaries x browse, each launch's body (4 px a thread in a
+   window) against ``wtr_kernel.window_body``; the 4 windowed launches
+   timed against the one unsharded launch, and their pass A and pass B
+   apart. The null kernel (phase 3d): the traffic floor
    ``null_fold`` against its plain twin at 3660^2 on int16, float32 and
    mixed inputs, 1, 3 and 8 of them, on an unaligned slice and a ragged
    tail; its time beside the device copy bandwidth;
@@ -571,8 +573,8 @@ def _launched(torch, *planes, config, scales=None, offsets=None, ocean=None,
               minimal=False, window=None):
     """``wtr_layers`` (2-D planes: the bands, fmask, invalid) or
     ``wtr_layers_batched`` (stacks) on the card through the wrappers' own
-    launch: the layers, and whether the per-pixel launch took its 8-pixel
-    body."""
+    launch: the layers, and the pixels a thread of the per-pixel launch
+    took (8, 4 in a window, or 1)."""
     from proteus_tpu_torch.ops import wtr_kernel
     single = planes[0].dim() == 2
 
@@ -585,6 +587,21 @@ def _launched(torch, *planes, config, scales=None, offsets=None, ocean=None,
     if single:
         out = {name: t[0] for name, t in out.items()}
     return out, vectorized
+
+
+def _check_window_body(what, ran, width, inputs, outputs):
+    """Raises unless a windowed launch took the body that
+    ``wtr_kernel.window_body`` chooses for its planes (the inputs and the
+    layers; the 'cover' state is an allocation of its own, aligned as the
+    layers are)."""
+    from proteus_tpu_torch.ops import wtr_kernel
+    planes = [t for t in (*inputs, *outputs.values())
+              if t is not None and t.dim() == 3]
+    want = wtr_kernel.window_body(
+        width, [(t.data_ptr(), t.element_size()) for t in planes])
+    if ran != want:
+        raise AssertionError(f'{what}: the windowed launch took the body of '
+                             f'{ran} px a thread, window_body chose {want}')
 
 
 def _shifted(torch, t):
@@ -605,7 +622,8 @@ def _odd_shapes_vs_plain(torch, bands, planes, fmasks):
     K2's 94 px tile), a [2, 1001, 1003] stack with per-tile scales (H * W is
     no multiple of 8: a group of 8 would straddle two tiles, so the
     one-pixel body again), and 'cover' windows whose first row is no
-    multiple of the tile. Each case checks which body the launcher took."""
+    multiple of the tile (W = 1003 is no multiple of 4: the windowed
+    one-pixel body). Each case checks which body the launcher took."""
     from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
     from proteus_tpu_torch.ops import wtr_kernel
 
@@ -621,14 +639,14 @@ def _odd_shapes_vs_plain(torch, bands, planes, fmasks):
 
     n_cases = err = 0
 
-    def check(what, vectorized, launched, want):
+    def check(what, body, launched, want):
         nonlocal n_cases, err
         got, ran = launched
         torch.cuda.synchronize()
         err = max(err, _compare(torch, got, want, what))
-        if ran is not vectorized:
-            raise AssertionError(f'{what}: the 8-pixel body ran: {ran}, '
-                                 f'expected {vectorized}')
+        if ran != body:
+            raise AssertionError(f'{what}: the body of {ran} px a thread '
+                                 f'ran, expected {body}')
         n_cases += 1
 
     for dtype, mode, browse in (('int16', 'mask', True),
@@ -639,13 +657,13 @@ def _odd_shapes_vs_plain(torch, bands, planes, fmasks):
         fmask = fmasks['structured' if mode == 'cover' else 'random']
         args = (*bands[dtype], fmask, planes['invalid'])
         kw = {k: planes[k] for k in ('ocean', 'shadow', 'landcover')}
-        for what, move, vectorized in (
-                ('aligned', lambda t: t, True),
-                ('every plane 1 element into its buffer', shifted, False),
-                (f'{ch} x {cw} (n % 8 = {ch * cw % 8})', crop, True)):
+        for what, move, body in (
+                ('aligned', lambda t: t, 8),
+                ('every plane 1 element into its buffer', shifted, 1),
+                (f'{ch} x {cw} (n % 8 = {ch * cw % 8})', crop, 8)):
             a = [move(t) for t in args]
             k = {name: move(t) for name, t in kw.items()}
-            check(f'bands={dtype} mode={mode}, {what}', vectorized,
+            check(f'bands={dtype} mode={mode}, {what}', body,
                   _launched(torch, *a, config=cfg, **k,
                             compute_browse=browse),
                   wtr_kernel.wtr_layers_plain(*a, cfg, **k,
@@ -660,17 +678,18 @@ def _odd_shapes_vs_plain(torch, bands, planes, fmasks):
                        planes['invalid'])]
         kw = dict(scales=scales, offsets=offsets, minimal=True,
                   landcover=torch.stack([crop(planes['landcover'])] * 2))
-        check(f'device scale, B=2 x {ch} x {cw}, mode={mode}', False,
+        check(f'device scale, B=2 x {ch} x {cw}, mode={mode}', 1,
               _launched(torch, *a, config=cfg, **kw),
               wtr_kernel.wtr_layers_batched_plain(*a, cfg, **kw))
         # the same stack without the scales: the vector body, whose groups
         # of 8 may cross from tile 0 into tile 1
         del kw['scales'], kw['offsets']
-        check(f'int16, B=2 x {ch} x {cw}, mode={mode}', True,
+        check(f'int16, B=2 x {ch} x {cw}, mode={mode}', 8,
               _launched(torch, *a, config=cfg, **kw),
               wtr_kernel.wtr_layers_batched_plain(*a, cfg, **kw))
-    # 'cover' windows off the tile grid (the one-pixel body, but for the
-    # window of every row, which is the unwindowed launch)
+    # 'cover' windows off the tile grid (the windowed one-pixel body, W %
+    # 4 = 3, but for the window of every row, which is the unwindowed
+    # launch)
     cfg = DswxChainConfig(mask_adjacent_to_cloud_mode='cover')
     a = [torch.stack([crop(t)]) for t in (*bands['int16'],
                                           fmasks['structured'],
@@ -680,7 +699,7 @@ def _odd_shapes_vs_plain(torch, bands, planes, fmasks):
         for minimal in (False, True):
             kw = dict(window=window, minimal=minimal)
             check(f"int16 'cover' window {window} of {ch} rows, "
-                  f'minimal={minimal}', window == (0, ch),
+                  f'minimal={minimal}', 8 if window == (0, ch) else 1,
                   _launched(torch, *a, config=cfg, **kw),
                   wtr_kernel.wtr_layers_batched_plain(*a, cfg, **kw))
     say(f'off the vector path and off the tile grid: {n_cases} cases == '
@@ -739,7 +758,7 @@ def _inexact_threshold_sets():
 def _inexact_vs_plain(torch, rng, planes, fmasks):
     """int16-band thresholds that are no exact rationals, on the card: the
     kernels (the float64 ratio tests of the per-pixel pass in its 8-pixel,
-    one-pixel and windowed bodies; the integer bounds from float64
+    one-pixel and windowed 4-pixel bodies; the integer bounds from float64
     thresholds) against the plain chain, bit for bit, on bands pushed onto
     the decision boundaries; on the upper half of the tile's planes (the
     host makes a set of bands for each set of thresholds)."""
@@ -771,23 +790,23 @@ def _inexact_vs_plain(torch, rng, planes, fmasks):
             fmask = fmasks['structured' if mode == 'cover' else 'random']
             args = (*bands, fmask, planes['invalid'])
             want = wtr_kernel.wtr_layers_plain(*args, cfg, **kw)
-            for moved, move, vectorized in (
-                    ('aligned', lambda t: t, True),
+            for moved, move, body in (
+                    ('aligned', lambda t: t, 8),
                     ('1 element into its buffer',
-                     lambda t: _shifted(torch, t), False)):
+                     lambda t: _shifted(torch, t), 1)):
                 got, ran = _launched(
                     torch, *[move(t) for t in args], config=cfg,
                     **{name: move(t) for name, t in kw.items()})
                 torch.cuda.synchronize()
                 label = f'{what}, mode={mode}, {moved}'
                 err = max(err, _compare(torch, got, want, label))
-                if ran is not vectorized:
-                    raise AssertionError(f'{label}: the 8-pixel body ran: '
-                                         f'{ran}')
+                if ran != body:
+                    raise AssertionError(f'{label}: the body of {ran} px a '
+                                         f'thread ran, expected {body}')
                 n_cases += 1
             if mode == 'ignore':
                 continue
-            # the windowed body, full and packed outputs
+            # the windowed 4-pixel body, full and packed outputs
             stack = [t.unsqueeze(0) for t in args]
             for minimal in (False, True):
                 wkw = dict(window=rows, minimal=minimal,
@@ -797,14 +816,15 @@ def _inexact_vs_plain(torch, rng, planes, fmasks):
                 err = max(err, _compare(
                     torch, got, wtr_kernel.wtr_layers_batched_plain(
                         *stack, cfg, **wkw), label))
-                if ran:
-                    raise AssertionError(f'{label}: the 8-pixel body ran')
+                _check_window_body(label, ran, SIZE,
+                                   stack + [wkw['landcover']], got)
                 n_cases += 1
         del bands
     say(f'inexact int16-band thresholds: {n_cases} cases == plain chain, '
         f'bit for bit ({len(_inexact_threshold_sets())} sets of thresholds '
-        f'x mask/ignore/cover x the 8-pixel, one-pixel and windowed bodies; '
-        f'float64 ratio tests and integer bounds from float64 thresholds; '
+        f'x mask/ignore/cover x the 8-pixel, one-pixel and windowed 4-pixel '
+        f'bodies; float64 ratio tests and integer bounds from float64 '
+        f'thresholds; '
         f'boundary-pushed int16 bands of {height} x {SIZE}); max |err| '
         f'{err}')
 
@@ -1066,8 +1086,10 @@ def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
     halo in 'cover'); every windowed launch against the plain twin on its
     padded block, cropped, and the 4 pieces joined against the unsharded
     K6 launch, bit for bit, in every band kind x mode x ancillaries x
-    browse; then the 4 windowed launches of a stack timed against the one
-    unsharded launch."""
+    browse, each launch's body against ``wtr_kernel.window_body`` (at a
+    width that is a multiple of 4, the 4-pixel body); then the 4 windowed
+    launches of a stack timed against the one unsharded launch, and their
+    pass A (``pixel_pass``) and, in 'cover', pass B (``launch_k2``) apart."""
     import itertools
     from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
     from proteus_tpu_torch.ops import wtr_kernel
@@ -1075,6 +1097,7 @@ def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
     say(f'== phase 3c: the spatial launch (K6 spatial) vs plain, 2 x {SIZE}'
         f'x{SIZE} in {SHARDS} row shards')
     err = n_runs = 0
+    bodies = {}  # px a thread of the body -> launches that took it
 
     def stacks(kind, mode, extras, browse):
         bands, fm, inv, kw = _stack(torch, inputs, fmasks, scaled, kind, 2,
@@ -1097,13 +1120,27 @@ def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
         for a0, a1, r0, r1 in _shards(SIZE, HALO if mode == 'cover' else 0):
             block, block_kw = _blocks(args, kw, a0, a1)
             window = (r0 - a0, r1 - r0)
-            got = wtr_kernel.wtr_layers_batched(*block, cfg, **block_kw,
-                                                window=window)
+            got, ran = _launched(torch, *block, config=cfg, **block_kw,
+                                 window=window)
             want = wtr_kernel.wtr_layers_batched_plain(
                 *block, cfg, **block_kw, window=window)
             torch.cuda.synchronize()
-            err = max(err, _compare(torch, got, want,
-                                    f'{what}, rows {r0}..{r1 - 1}'))
+            label = f'{what}, rows {r0}..{r1 - 1}'
+            err = max(err, _compare(torch, got, want, label))
+            if window[1] == a1 - a0:  # the block is its window: unwindowed
+                # (per-tile scales need H * W a multiple of 8 for 8 px)
+                body = 1 if kind == 'device_scale' \
+                    and (a1 - a0) * SIZE % 8 else 8
+                if ran != body:
+                    raise AssertionError(f'{label}: the body of {ran} px a '
+                                         f'thread ran, expected {body}')
+            else:
+                _check_window_body(label, ran, SIZE, [*block, *(
+                    v for v in block_kw.values() if hasattr(v, 'dim'))],
+                    got)
+                if SIZE % wtr_kernel.WINDOW_VEC == 0 and ran == 1:
+                    raise AssertionError(f'{label}: the one-pixel body ran')
+            bodies[ran] = bodies.get(ran, 0) + 1
             for name, t in got.items():
                 pieces.setdefault(name, []).append(t)
             del block, block_kw, want
@@ -1116,7 +1153,10 @@ def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
         f'joined shards == the unsharded K6 launch, bit for bit, in '
         f'{n_runs} combinations (int16/float32/device-scale x mask/ignore/'
         f'cover x ancillaries x browse), {SHARDS * n_runs} windowed '
-        f'launches; max |err| {err}')
+        f'launches; max |err| {err}; launches by the px a thread of their '
+        f'body: {bodies} (the blocks of \'mask\' and \'ignore\' are their '
+        f'windows: unwindowed, 8, or 1 with per-tile scales on H * W % 8 = '
+        f'{(SIZE // SHARDS) * SIZE % 8})')
 
     # the 4 windowed launches of a stack against the one unsharded launch,
     # at the main path's flags (shadow + landcover, browse; full outputs)
@@ -1136,29 +1176,56 @@ def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
 
         def whole():
             wtr_kernel.wtr_layers_batched(*args, cfg, **kw)
-        runs = {'sharded': [], 'whole': [], 'plain': []}
-        for fn, key, reps in ((sharded, 'sharded', 10), (whole, 'whole', 10),
-                              (lambda: sharded(
-                                  wtr_kernel.wtr_layers_batched_plain),
-                               'plain', 3)):
-            runs[key].append(_time_ms(torch, fn, [()], reps) / 2)
-        for key, fn, reps in (('whole', whole, 10),
-                              ('sharded', sharded, 10)):
+        # pass A alone (the per-pixel launch) and, in 'cover', pass B
+        # alone (K2's dilations) on the state and layers of a pass A run
+        parts = {'sharded': blocks, 'whole': [(args, kw, None)]}
+        passed = {key: [(wtr_kernel.pixel_pass(*a, cfg, **k, window=w), w)
+                        for a, k, w in items] for key, items in parts.items()}
+
+        def pass_a(key):
+            for a, k, w in parts[key]:
+                wtr_kernel.pixel_pass(*a, cfg, **k, window=w)
+
+        def pass_b(key):
+            for (out, state, flags, _, _), w in passed[key]:
+                wtr_kernel.launch_k2(state, out, flags,
+                                     row0=0 if w is None else w[0])
+        timed = [('sharded', sharded, 10), ('whole', whole, 10),
+                 ('sharded_a', lambda: pass_a('sharded'), 10),
+                 ('whole_a', lambda: pass_a('whole'), 10)]
+        if mode == 'cover':
+            timed += [('sharded_b', lambda: pass_b('sharded'), 10),
+                      ('whole_b', lambda: pass_b('whole'), 10)]
+        timed.append(('plain', lambda: sharded(
+            wtr_kernel.wtr_layers_batched_plain), 3))
+        runs = {key: [] for key, _, _ in timed}
+        for key, fn, reps in timed + [t for t in reversed(timed)
+                                      if t[0] != 'plain']:
             runs[key].append(_time_ms(torch, fn, [()], reps) / 2)
         ms = {k: statistics.median(v) for k, v in runs.items()}
         rows_read = sum(a1 - a0 for a0, a1, _, _ in cut)
         bound = _spatial_bound(mode, rows_read)
+        took = [vec for (*_, vec), _ in passed['sharded']]
+        split = f'pass A {ms["sharded_a"]:.4f} (runs {runs["sharded_a"]})'
+        whole_split = f'pass A {ms["whole_a"]:.4f} (runs {runs["whole_a"]})'
+        if mode == 'cover':
+            split += f', pass B {ms["sharded_b"]:.4f} (runs ' \
+                f'{runs["sharded_b"]})'
+            whole_split += f', pass B {ms["whole_b"]:.4f} (runs ' \
+                f'{runs["whole_b"]})'
         say(f'wtr_k6_spatial ({mode!r}, int16, B=2; shadow + landcover + '
             f'browse): {SHARDS} windowed launches {ms["sharded"]:.4f} '
-            f'ms/tile (runs {runs["sharded"]}), the unsharded launch '
-            f'{ms["whole"]:.4f} (runs {runs["whole"]}), plain twin '
-            f'{ms["plain"]:.4f} (runs {runs["plain"]}); the blocks read '
-            f'{rows_read} of {SIZE} rows, bound {bound["bound_ms"]:.4f} ms '
-            f'({bound["bound_by"]}), {bound["bound_ms"] / ms["sharded"]:.1%}'
-            f' of the kernel time; device copy {copy_bw / 1e9:.1f} GB/s')
+            f'ms/tile (runs {runs["sharded"]}; {split}; px a thread of '
+            f'each shard\'s body {took}), the unsharded launch '
+            f'{ms["whole"]:.4f} (runs {runs["whole"]}; {whole_split}), '
+            f'plain twin {ms["plain"]:.4f} (runs {runs["plain"]}); the '
+            f'blocks read {rows_read} of {SIZE} rows, bound '
+            f'{bound["bound_ms"]:.4f} ms ({bound["bound_by"]}), '
+            f'{bound["bound_ms"] / ms["sharded"]:.1%} of the kernel time; '
+            f'device copy {copy_bw / 1e9:.1f} GB/s')
         stats[mode] = {'max_abs_err': err, 'ms': ms['sharded'],
                        'plain_ms': ms['plain'], **bound}
-        del args, kw, blocks
+        del args, kw, blocks, parts, passed
     return {'wtr_k6_spatial': stats['cover']}
 
 
@@ -2414,6 +2481,19 @@ def _check_no_jax():
                              f'{loaded}')
 
 
+def _last_lines(torch, *lines):
+    """The end of a run: no module of jax or proteus_tpu loaded, then the
+    card's name and power limit, ``lines``, and the result line."""
+    _check_no_jax()
+    say(nvidia_smi_line())
+    for line in lines:
+        say(line)
+    say(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None):
     import torch
     if not torch.cuda.is_available():
@@ -2427,7 +2507,8 @@ def main(argv=None):
         return 2
 
     os.environ['PROTEUS_TPU_STAGE_TIMES'] = '1'
-    multi_only = '--multi-gpu' in (sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    multi_only = '--multi-gpu' in argv
     phase_device(torch)
     phase_build()
     if multi_only:
@@ -2435,12 +2516,7 @@ def main(argv=None):
             raise AssertionError('--multi-gpu needs two or more cards')
         with tempfile.TemporaryDirectory(prefix='chip_smoke_') as workdir:
             phase_multi_gpu(torch, workdir)
-        _check_no_jax()
-        say(nvidia_smi_line())
-        say(json.dumps({'ok': True, 'device': {
-            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-            'count': torch.cuda.device_count()}}))
-        return 0
+        return _last_lines(torch)
     stats, inputs, planes, fmasks, copy_bw = phase_kernel_vs_plain(torch)
     batched, scaled = phase_batched_vs_plain(torch, inputs, planes, fmasks,
                                              copy_bw)
@@ -2470,7 +2546,6 @@ def main(argv=None):
             phase_multi_gpu(torch, workdir)
         else:
             say('== phase 6: skipped, one card visible')
-    _check_no_jax()
 
     replaces = {'wtr_k1': 'ops/pallas/wtr_kernel.py:351',
                 'wtr_k2': 'ops/pallas/wtr_kernel.py:465',
@@ -2492,12 +2567,7 @@ def main(argv=None):
         if kernel['launches'] < 1:
             raise AssertionError(f'{kernel["name"]} was launched no time on '
                                  f'the main paths')
-    say(nvidia_smi_line())
-    say(json.dumps({'kernels': kernels}))
-    say(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
-    return 0
+    return _last_lines(torch, json.dumps({'kernels': kernels}))
 
 
 if __name__ == '__main__':

@@ -6,31 +6,41 @@ proteus_tpu_torch.native.build``); builds it on first use when a compiler
 is available. All entry points have pure-Python/NumPy fallbacks in
 proteus_tpu_torch.io.codecs, so the package works without the native
 library — just slower on the LZW/predictor paths. ``codec()`` says which
-of the two writes and reads.
+of the two writes and reads, and why the native library is not in use when
+its build or load failed (logged once, as a warning).
 """
 
 import ctypes
+import logging
 import os
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_FAILED = None  # 'build failed: <first line>' or 'load failed: ...'
 
 
 def _load():
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _FAILED
     if _TRIED:
         return _LIB
     _TRIED = True
     if os.environ.get('PROTEUS_TPU_NO_NATIVE'):
         return None
     from proteus_tpu_torch.native import build as _build
+    step = 'build'
     try:
         if not _build.lib_is_fresh():
             _build.build(verbose=False)
+        step = 'load'
         lib = ctypes.CDLL(_build.lib_path())
-    except Exception:  # noqa: BLE001 - fall back to pure Python
+    except Exception as exc:  # noqa: BLE001 - fall back to pure Python
+        first = (str(exc).strip().splitlines() or [''])[0]
+        _FAILED = f'{step} failed: {type(exc).__name__}: {first}'
+        logging.getLogger(__name__).warning(
+            'native codec %s; using the pure-Python codec', _FAILED,
+            exc_info=exc)
         return None
 
     lib.tt_inflate.restype = ctypes.c_long
@@ -100,9 +110,10 @@ def available():
 
 def codec():
     """The codec in use: 'native (libdeflate)', 'native (zlib)' or
-    'pure-Python'."""
+    'pure-Python', with the reason where the native library failed to
+    build or load ('pure-Python (build failed: <first line>)')."""
     if _load() is None:
-        return 'pure-Python'
+        return f'pure-Python ({_FAILED})' if _FAILED else 'pure-Python'
     from proteus_tpu_torch.native import build as _build
     return f'native ({_build.linked()})'
 

@@ -35,11 +35,11 @@
 //       inputs are a [B, Hb, W] block of tile rows, the outputs the
 //       [B, rows_out, W] window of block rows [row0, row0 + rows_out).
 //       The per-pixel pass (wtr_pixel_kernel<*, *, true>) walks the
-//       block; a pixel outside the window writes only its 'cover' state
-//       byte (and nothing outside 'cover', where a shard's block is its
-//       window). wtr_k2_kernel's grid covers the window's rows; it stages
-//       the block's state with zeros beyond the block, reads WTR-2 and
-//       writes its layers in the window. No ghost rows and no copy-out
+//       block, a tile a grid row (blockIdx.y); a pixel outside the window
+//       writes only its 'cover' state byte (and nothing outside 'cover',
+//       where a shard's block is its window). wtr_k2_kernel's grid
+//       covers the window's rows; it stages the block's state with zeros
+//       beyond the block, reads WTR-2 and writes its layers in the window. No ghost rows and no copy-out
 //       crop: at the tile's true edges the block simply stops, which is
 //       the single-device border. row0 = 0 and rows_out = Hb is the plain
 //       K6 launch, through wtr_pixel_kernel<*, *, false>, the kernel as
@@ -85,9 +85,19 @@
 //   to its vector and, with K4's per-tile scales, H*W a multiple of 8 so
 //   that a thread's 8 pixels lie in one tile; the launcher checks both,
 //   never assumes them. Otherwise, and for the last n % 8 pixels, the same
-//   template runs with one pixel a thread (kVec = 1). The windowed launch
-//   (K6 spatial) always takes the one-pixel body: a window's first row is
-//   not 8-aligned in general (915 * 3660 = 4 mod 8).
+//   template runs with one pixel a thread (kVec = 1).
+//   The windowed launch (K6 spatial) cannot group by 8: a window's first
+//   row is not 8-aligned in general (915 * 3660 = 4 mod 8), nor is the
+//   block's (949 * 3660). It takes 4 pixels a thread (kVec = 4) where W is
+//   a multiple of 4: a group of 4 then never straddles a row, so never a
+//   tile or the window's edge, and it is aligned in the block and in the
+//   window alike (int16 8 B, float32 16 B, DIAG 8 B, uint8 4 B; the
+//   launcher checks every pointer). A grid row a tile: the tile is
+//   blockIdx.y, a group's pixel p of its tile, its row p / W and the window
+//   test (one compare a group) are 32-bit (Hb * W < 2^31), no 64-bit
+//   division a pixel. Any other width or alignment takes the one-pixel
+//   body (ops/wtr_kernel.py::window_body states the choice and the group
+//   arithmetic for the CPU tests).
 //   Operations: each scalar threshold reaches the kernel as an integer
 //   bound (WtrBounds: one compare a test), a ratio test is the sign of
 //   q * num - p * den under the sign of den, and the chain's small
@@ -95,9 +105,11 @@
 //   the aerosol class test, finish_layers) are tables in shared memory that
 //   a block fills from those very functions before its first pixel
 //   (ChainTables, 1376 B; indexed by data they diverge within a warp, which
-//   the constant bank would serialise and shared memory does not). The
-//   one-pixel body keeps only the aerosol table and calls the functions: its
-//   blocks take 256 pixels, too few to pay for filling the rest.
+//   the constant bank would serialise and shared memory does not). Both
+//   vector bodies read them (a block of the windowed 4-pixel body takes
+//   1024 pixels). The one-pixel body keeps only the aerosol table and calls
+//   the functions: its blocks take 256 pixels, too few to pay for filling
+//   the rest.
 //   wtr_k2_kernel (pass B) was bound by instruction issue, not bytes: its
 //   dilations run on bit-planes. A block of 128 threads owns a tile of
 //   94 x 94 output pixels and the 128 x 128 span around it (a 17 px halo,
@@ -216,6 +228,14 @@ constexpr int kStInside = 0x40;  // set by wtr_k2_kernel: inside the image
 constexpr int kMaxBatch = 1024;  // K4 stages 48 B a tile in shared memory
 
 constexpr int kVecPx = 8;  // pixels a thread of the vector per-pixel body
+constexpr int kWindowVec = 4;  // ... and of the windowed vector body
+
+// blocks of 256 threads a multiprocessor that the windowed 4-pixel body's
+// registers must allow (__launch_bounds__), chosen by measurement
+// (PERF.md, a sweep of 1 to 4): 4 (64 registers, 4 to 16 B of
+// spills) against 72-80 registers at 1 to 3. A group of 4 keeps half
+// the bytes of a group of 8 in flight, so the pass wants the threads.
+constexpr int kWindowMinBlocks = 4;
 
 constexpr int kSnowSteps = 10, kUnmaskSteps = 7;
 constexpr int kHalo = kSnowSteps + kUnmaskSteps;  // 17
@@ -406,9 +426,10 @@ __device__ __forceinline__ Finished finish_layers(int cloud, int wtr2,
 // block from the functions above, so that a pixel pays one load for each
 // instead of their two dozen compares and selects: with vector loads and
 // stores the per-pixel pass is bound by instruction issue. The vector body
-// reads all four (a block's fill is spread over its 2048 pixels); the
-// one-pixel body, whose blocks take 256 pixels, fills and reads only the
-// aerosol table and calls the functions (kTables of pixel_chain).
+// reads all four (a block's fill is spread over its 2048 pixels, 1024 in
+// the windowed 4-pixel body); the one-pixel body, whose blocks take 256
+// pixels, fills and reads only the aerosol table and calls the functions
+// (kTables of pixel_chain).
 struct ChainTables {
   // finish_layers of (CLOUD's four bits, widx(WTR-2)) at 16 * widx + cloud:
   // x = CLOUD | WTR << 8 | BWTR << 16 | CONF << 24, y = BROWSE
@@ -538,8 +559,8 @@ __device__ __forceinline__ Pixel pixel_chain(
 }
 
 // kVec consecutive pixels of a plane from pixel i: one vector load (kVec ==
-// 8; i a multiple of 8 and the plane aligned to the vector, which the
-// launcher checks) or one element (kVec == 1).
+// 8 or 4; i a multiple of kVec and the plane aligned to the vector, which
+// the launcher checks) or one element (kVec == 1).
 template <int kVec>
 __device__ __forceinline__ void load_px(const int16_t* __restrict__ p,
                                         int64_t i, int16_t (&v)[kVec]) {
@@ -551,6 +572,12 @@ __device__ __forceinline__ void load_px(const int16_t* __restrict__ p,
       v[2 * j] = (int16_t)(w[j] & 0xFFFFu);
       v[2 * j + 1] = (int16_t)(w[j] >> 16);
     }
+  } else if constexpr (kVec == kWindowVec) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p + i));
+    v[0] = (int16_t)(q.x & 0xFFFFu);
+    v[1] = (int16_t)(q.x >> 16);
+    v[2] = (int16_t)(q.y & 0xFFFFu);
+    v[3] = (int16_t)(q.y >> 16);
   } else {
     v[0] = p[i];
   }
@@ -564,6 +591,9 @@ __device__ __forceinline__ void load_px(const float* __restrict__ p,
     const float4 b = __ldg(reinterpret_cast<const float4*>(p + i + 4));
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else if constexpr (kVec == kWindowVec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p + i));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   } else {
     v[0] = p[i];
   }
@@ -579,6 +609,10 @@ __device__ __forceinline__ void load_px(const uint8_t* __restrict__ p,
       v[j] = (int)((q.x >> (8 * j)) & 0xFFu);
       v[4 + j] = (int)((q.y >> (8 * j)) & 0xFFu);
     }
+  } else if constexpr (kVec == kWindowVec) {
+    const uint32_t q = __ldg(reinterpret_cast<const unsigned int*>(p + i));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = (int)((q >> (8 * j)) & 0xFFu);
   } else {
     v[0] = p[i];
   }
@@ -603,6 +637,9 @@ __device__ __forceinline__ void store_u8(uint8_t* __restrict__ p, int64_t i,
     o.x = pack4(px[0].*field, px[1].*field, px[2].*field, px[3].*field);
     o.y = pack4(px[4].*field, px[5].*field, px[6].*field, px[7].*field);
     *reinterpret_cast<uint2*>(p + i) = o;
+  } else if constexpr (kVec == kWindowVec) {
+    *reinterpret_cast<uint32_t*>(p + i) =
+        pack4(px[0].*field, px[1].*field, px[2].*field, px[3].*field);
   } else {
     p[i] = (uint8_t)(px[0].*field);
   }
@@ -619,14 +656,32 @@ __device__ __forceinline__ void store_diag(uint16_t* __restrict__ p,
     o.z = __byte_perm(px[4].diag, px[5].diag, 0x5410);
     o.w = __byte_perm(px[6].diag, px[7].diag, 0x5410);
     *reinterpret_cast<uint4*>(p + i) = o;
+  } else if constexpr (kVec == kWindowVec) {
+    *reinterpret_cast<uint2*>(p + i) =
+        make_uint2(__byte_perm(px[0].diag, px[1].diag, 0x5410),
+                   __byte_perm(px[2].diag, px[3].diag, 0x5410));
   } else {
     p[i] = (uint16_t)px[0].diag;
   }
 }
 
 // CLOUD, WTR, BWTR and CONF of kVec pixels from their Pixel::fin words
-// (byte k of a word is layer k): a 4 x 4 byte transpose a half of the
-// group, eight permutes for sixteen bytes.
+// (byte k of a word is layer k): a 4 x 4 byte transpose a group of four
+// pixels, eight permutes for sixteen bytes.
+__device__ __forceinline__ void fin_transpose(const Pixel* px, int h,
+                                              uint32_t (*layer)[2]) {
+  const uint32_t a = px[4 * h].fin, b = px[4 * h + 1].fin,
+                 c = px[4 * h + 2].fin, d = px[4 * h + 3].fin;
+  const uint32_t ab01 = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
+  const uint32_t cd01 = __byte_perm(c, d, 0x5140);
+  const uint32_t ab23 = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
+  const uint32_t cd23 = __byte_perm(c, d, 0x7362);
+  layer[0][h] = __byte_perm(ab01, cd01, 0x5410);
+  layer[1][h] = __byte_perm(ab01, cd01, 0x7632);
+  layer[2][h] = __byte_perm(ab23, cd23, 0x5410);
+  layer[3][h] = __byte_perm(ab23, cd23, 0x7632);
+}
+
 template <int kVec>
 __device__ __forceinline__ void store_fin(
     uint8_t* __restrict__ cloud_o, uint8_t* __restrict__ wtr_o,
@@ -635,18 +690,7 @@ __device__ __forceinline__ void store_fin(
   if constexpr (kVec == kVecPx) {
     uint32_t layer[4][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t a = px[4 * h].fin, b = px[4 * h + 1].fin,
-                     c = px[4 * h + 2].fin, d = px[4 * h + 3].fin;
-      const uint32_t ab01 = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
-      const uint32_t cd01 = __byte_perm(c, d, 0x5140);
-      const uint32_t ab23 = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
-      const uint32_t cd23 = __byte_perm(c, d, 0x7362);
-      layer[0][h] = __byte_perm(ab01, cd01, 0x5410);
-      layer[1][h] = __byte_perm(ab01, cd01, 0x7632);
-      layer[2][h] = __byte_perm(ab23, cd23, 0x5410);
-      layer[3][h] = __byte_perm(ab23, cd23, 0x7632);
-    }
+    for (int h = 0; h < 2; ++h) fin_transpose(px, h, layer);
     *reinterpret_cast<uint2*>(cloud_o + i) = make_uint2(layer[0][0],
                                                         layer[0][1]);
     *reinterpret_cast<uint2*>(wtr_o + i) = make_uint2(layer[1][0],
@@ -655,6 +699,13 @@ __device__ __forceinline__ void store_fin(
                                                        layer[2][1]);
     *reinterpret_cast<uint2*>(conf_o + i) = make_uint2(layer[3][0],
                                                        layer[3][1]);
+  } else if constexpr (kVec == kWindowVec) {
+    uint32_t layer[4][2];
+    fin_transpose(px, 0, layer);
+    *reinterpret_cast<uint32_t*>(cloud_o + i) = layer[0][0];
+    *reinterpret_cast<uint32_t*>(wtr_o + i) = layer[1][0];
+    *reinterpret_cast<uint32_t*>(bwtr_o + i) = layer[2][0];
+    *reinterpret_cast<uint32_t*>(conf_o + i) = layer[3][0];
   } else {
     const uint32_t f = px[0].fin;
     cloud_o[i] = (uint8_t)f;
@@ -671,11 +722,14 @@ __device__ __forceinline__ void store_fin(
 // window from row row0 (kWindowed; else the whole stack, rows_out == H).
 // A thread takes kVec consecutive pixels: `groups` groups of kVec from
 // pixel `first` of the flattened stack (kVec == 8: first == 0, every plane
-// aligned to its vector and, with kScaled, hw a multiple of 8). kF64Ratio
+// aligned to its vector and, with kScaled, hw a multiple of 8); kWindowed:
+// `groups` groups of kVec of tile blockIdx.y (first == 0, hw < 2^31, kVec
+// == 4: W a multiple of 4, every plane aligned to its vector). kF64Ratio
 // (int16 bands only): the ratio tests as float64 quotients.
 template <typename Band, bool kScaled, bool kWindowed, int kVec,
           bool kF64Ratio>
-__global__ void __launch_bounds__(256, kVec == kVecPx ? 2 : 1)
+__global__ void __launch_bounds__(
+    256, kVec == kVecPx ? 2 : kVec == kWindowVec ? kWindowMinBlocks : 1)
 wtr_pixel_kernel(
     const Band* __restrict__ blue, const Band* __restrict__ green,
     const Band* __restrict__ red, const Band* __restrict__ nir,
@@ -692,11 +746,11 @@ wtr_pixel_kernel(
     uint8_t* __restrict__ state_o, int64_t first, int64_t groups,
     int64_t hw, int width, int row0, int rows_out, int batch, WtrParams P,
     WtrBounds Bd, WtrParamsF32 Q, WtrFlags F) {
-  static_assert(kVec == 1 || (kVec == kVecPx && !kWindowed),
-                "the windowed launch takes the one-pixel body");
+  static_assert(kVec == 1 || kVec == (kWindowed ? kWindowVec : kVecPx),
+                "8 pixels a thread unwindowed, 4 in a window, or one");
   // K4: the batch's scales (sv[6 t + j]) and offsets (sv[6 B + 6 t + j])
   extern __shared__ float sv[];
-  constexpr bool kTables = kVec == kVecPx;
+  constexpr bool kTables = kVec > 1;
   __shared__ ChainTables T;
   fill_chain_tables<kTables>(T, P, F);
   if (kScaled) {
@@ -706,19 +760,28 @@ wtr_pixel_kernel(
     }
   }
   __syncthreads();
+  // kWindowed: the stack index of tile blockIdx.y's first pixel, and the
+  // window index its block row 0 would have (a group's o = out_tile + p)
+  const int64_t in_tile = kWindowed ? (int64_t)blockIdx.y * hw : 0;
+  const int64_t out_tile = kWindowed
+      ? ((int64_t)blockIdx.y * rows_out - row0) * width : 0;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        g < groups; g += stride) {
-    const int64_t i = first + g * kVec;
-    // o: the group's index in the output window, -1 outside it
-    int64_t o = i;
+    // i: the group's index in the stack; o: in the output window, -1
+    // outside it
+    int64_t i, o;
     if constexpr (kWindowed) {
-      const int64_t tile = i / hw, p = i - tile * hw;
-      const int y = (int)(p / width);
-      o = (y >= row0 && y < row0 + rows_out)
-          ? tile * rows_out * (int64_t)width + p - (int64_t)row0 * width
-          : -1;
+      // p, the group's first pixel in its tile, and its row: 32-bit; the
+      // group's pixels share the row
+      const int p = (int)g * kVec;
+      i = in_tile + p;
+      o = (unsigned)(p / width - row0) < (unsigned)rows_out ? out_tile + p
+                                                            : -1;
       if (o < 0 && !F.cover) continue;
+    } else {
+      i = first + g * kVec;
+      o = i;
     }
     // every load of the group before the first use
     Band b[kVec], gr[kVec], r[kVec], nr[kVec], s1[kVec], s2[kVec];
@@ -740,8 +803,10 @@ wtr_pixel_kernel(
     for (int j = 0; j < kVec; ++j) {
       Tests t;
       if constexpr (kScaled) {
-        // the group lies in one tile (hw is a multiple of kVec)
-        const float* sc = sv + 6 * (i / hw);
+        // the group lies in one tile (hw is a multiple of kVec, or the
+        // tile is the grid row)
+        const float* sc = sv + 6 * (kWindowed ? (int64_t)blockIdx.y
+                                              : i / hw);
         const float* of = sc + 6 * batch;
         t = diag_tests<false>(scale_band(b[j], sc[0], of[0]),
                               scale_band(gr[j], sc[1], of[1]),
@@ -957,8 +1022,9 @@ static bool aligned(const void* p, int bytes) {
 }
 
 // `bounds` are read for int16 bands (band_kind 0) only. `vectorized`, if
-// not null, is set to 1 when the 8-pixel body ran (on all but the last
-// n % 8 pixels), to 0 when the one-pixel body took everything.
+// not null, is set to the pixels a thread of the body that took the launch:
+// 8 (the 8-pixel body, on all but the last n % 8 pixels), 4 (the windowed
+// 4-pixel body, on every pixel) or 1 (the one-pixel body took everything).
 extern "C" int wtr_pixel_launch(
     int band_kind, const void* blue, const void* green, const void* red,
     const void* nir, const void* swir1, const void* swir2,
@@ -987,22 +1053,35 @@ extern "C" int wtr_pixel_launch(
   const int threads = 256;
   const cudaStream_t s = (cudaStream_t)stream;
   const bool windowed = rows_out != height;
+  // the windowed body counts a tile's pixels in 32 bits
+  if (windowed && hw > INT32_MAX) return (int)cudaErrorInvalidValue;
+  // whether every plane is aligned to a vector of px pixels: the bands to
+  // px of their type (16 B at most, the widest load), DIAG to px uint16,
+  // the uint8 planes to px bytes
+  auto all_aligned = [&](int px) {
+    const int band = px * (band_kind == 1 ? 4 : 2);
+    bool ok = aligned(diag, 2 * px);
+    for (const void* p : {blue, green, red, nir, swir1, swir2})
+      ok = ok && aligned(p, band < 16 ? band : 16);
+    for (const void* p : {fmask, invalid, ocean, shadow, landcover,
+                          (const void*)wtr1, (const void*)wtr2,
+                          (const void*)wtr, (const void*)bwtr,
+                          (const void*)conf, (const void*)cloud,
+                          (const void*)browse, (const void*)packed_a,
+                          (const void*)packed_b, (const void*)state})
+      ok = ok && aligned(p, px);
+    return ok;
+  };
   // the 8-pixel body: the whole stack (no window), every plane aligned to
-  // its vector (8 pixels: 16 B of int16, float32 or DIAG, 8 B of uint8)
-  // and, with per-tile scales, a group of 8 inside one tile
-  bool vec = !windowed && (band_kind != 2 || hw % kVecPx == 0);
-  for (const void* p : {blue, green, red, nir, swir1, swir2,
-                        (const void*)diag})
-    vec = vec && aligned(p, 16);
-  for (const void* p : {fmask, invalid, ocean, shadow, landcover,
-                        (const void*)wtr1, (const void*)wtr2,
-                        (const void*)wtr, (const void*)bwtr,
-                        (const void*)conf, (const void*)cloud,
-                        (const void*)browse, (const void*)packed_a,
-                        (const void*)packed_b, (const void*)state})
-    vec = vec && aligned(p, 8);
-  const int64_t n_vec = vec ? n / kVecPx : 0;
-  if (vectorized) *vectorized = n_vec > 0;
+  // its vector and, with per-tile scales, a group of 8 inside one tile.
+  // The windowed 4-pixel body: W a multiple of 4 (a group in one row) and
+  // every plane aligned to its vector.
+  const bool vec = windowed
+      ? width % kWindowVec == 0 && all_aligned(kWindowVec)
+      : (band_kind != 2 || hw % kVecPx == 0) && all_aligned(kVecPx);
+  const int64_t n_vec = vec && !windowed ? n / kVecPx : 0;
+  if (vectorized)
+    *vectorized = windowed ? (vec ? kWindowVec : 1) : n_vec > 0 ? kVecPx : 1;
   // K4 stages 48 B a tile beside the chain's tables
   const size_t smem = band_kind == 2 ? 12 * sizeof(float) * (size_t)batch
                                      : 0;
@@ -1027,7 +1106,9 @@ extern "C" int wtr_pixel_launch(
     }                                                                       \
     int64_t blocks = (groups + threads - 1) / threads;                      \
     if (blocks > (1 << 20)) blocks = 1 << 20; /* the loop covers the rest */\
-    kernel<<<(unsigned)blocks, threads, smem, s>>>(WTR_PIXEL_ARGS(T));      \
+    /* the windowed launch: a grid row a tile */                            \
+    const dim3 grid((unsigned)blocks, WINDOWED ? batch : 1);                \
+    kernel<<<grid, threads, smem, s>>>(WTR_PIXEL_ARGS(T));                  \
   } while (0)
 #define WTR_PIXEL_KIND(WINDOWED, VEC)                                        \
   do {                                                                      \
@@ -1040,6 +1121,18 @@ extern "C" int wtr_pixel_launch(
     else                                                                    \
       WTR_PIXEL_LAUNCH(int16_t, false, WINDOWED, VEC, false);               \
   } while (0)
+  if (windowed) {
+    // every group of a tile, the tile from the grid
+    const int64_t first = 0;
+    if (vec) {
+      const int64_t groups = hw / kWindowVec;
+      WTR_PIXEL_KIND(true, kWindowVec);
+    } else {
+      const int64_t groups = hw;
+      WTR_PIXEL_KIND(true, 1);
+    }
+    return (int)cudaGetLastError();
+  }
   if (n_vec > 0) {
     const int64_t first = 0, groups = n_vec;
     WTR_PIXEL_KIND(false, kVecPx);
@@ -1047,10 +1140,7 @@ extern "C" int wtr_pixel_launch(
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t first = n_vec * kVecPx, groups = n - first;
-  if (groups > 0) {
-    if (windowed) WTR_PIXEL_KIND(true, 1);
-    else WTR_PIXEL_KIND(false, 1);
-  }
+  if (groups > 0) WTR_PIXEL_KIND(false, 1);
 #undef WTR_PIXEL_KIND
 #undef WTR_PIXEL_LAUNCH
 #undef WTR_PIXEL_ARGS

@@ -57,6 +57,7 @@ PACKED = ('PACKED_A', 'PACKED_B')
 MODES = ('mask', 'ignore', 'cover')
 BANDS = ('blue', 'green', 'red', 'nir', 'swir1', 'swir2')
 MAX_SCALED_BATCH = 1024  # K4 stages 48 B a tile in 48 KB of shared memory
+WINDOW_VEC = 4  # pixels a thread of the windowed vector body (kWindowVec)
 
 # HlsThresholds field -> the kernels' name of its test
 _RATIO_FIELDS = {'wigt': 'wigt', 'pswt_1_mndwi': 'p1_mndwi',
@@ -341,10 +342,24 @@ def _check_window(window, height):
     return row0, rows
 
 
+def window_body(width, planes):
+    """The pixels a thread of the windowed per-pixel launch takes, as
+    ``wtr_pixel_launch`` in csrc/wtr_kernel.cu chooses them: 4 where the
+    width is a multiple of 4 (a group of 4 then lies in one row, so in one
+    tile and on one side of the window's edges) and every plane is aligned
+    to its vector of 4 pixels, else 1 (the one-pixel body). ``planes``: the
+    (address, itemsize) of every plane the launch reads or writes (int16 or
+    float32 bands, DIAG's uint16, the uint8 planes)."""
+    if width % WINDOW_VEC:
+        return 1
+    return WINDOW_VEC if all(address % (WINDOW_VEC * size) == 0
+                             for address, size in planes) else 1
+
+
 def _launch(bands, fmask, invalid, config, scales, offsets, ocean, shadow,
             landcover, compute_browse, minimal, batched, window=None):
-    """The layers of a [B, H, W] stack of CUDA tensors, and whether the
-    per-pixel launch took its 8-pixel body (``pixel_pass``)."""
+    """The layers of a [B, H, W] stack of CUDA tensors, and the pixels a
+    thread of the per-pixel launch took (``pixel_pass``)."""
     out, state, flags, slices, vectorized = pixel_pass(
         *bands, fmask, invalid, config, scales, offsets, ocean, shadow,
         landcover, compute_browse, minimal, batched, window)
@@ -411,9 +426,10 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
     Returns the layers, the 'cover' state bytes (None in the other modes;
     ``launch_k2`` finishes the layers from them), the launch flags, the
     slices of the call (``kernel_slices``; K6 with ``batched``, K6 spatial
-    with a window) and whether the 8-pixel vector body ran (every plane
-    aligned to its vector, no window) rather than the one-pixel body
-    alone."""
+    with a window) and the pixels a thread of the body that took the launch:
+    8 (no window, every plane aligned to its vector), 4 (a window, the
+    width a multiple of 4 and every plane aligned: ``window_body``) or 1
+    (the one-pixel body alone)."""
     from proteus_tpu_torch.ops.build import build
 
     mode = config.mask_adjacent_to_cloud_mode
@@ -486,7 +502,7 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
             ctypes.byref(flags), ctypes.byref(vectorized), stream)
     _raise_on(lib, err, f'{"+".join(slices)} launch')
     _count(s for s in slices if s != 'wtr_k2')
-    return out, state, flags, slices, bool(vectorized.value)
+    return out, state, flags, slices, vectorized.value
 
 
 def launch_k2(state, out, flags, slices=('wtr_k2',), row0=0):

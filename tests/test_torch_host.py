@@ -155,6 +155,38 @@ def test_native_codec_builds_from_the_port():
                                             'native', 'tiffturbo.cpp')
 
 
+@pytest.mark.parametrize('step', ['build', 'load'])
+def test_native_codec_names_why_it_fell_back(monkeypatch, caplog, step):
+    """A failed build or load of the native library still falls back to
+    the pure-Python codec, but ``codec()`` names the step and the first
+    line of its error, and the loader logs it once, as a warning."""
+    monkeypatch.delenv('PROTEUS_TPU_NO_NATIVE', raising=False)
+    monkeypatch.setattr(tnative, '_LIB', None)
+    monkeypatch.setattr(tnative, '_TRIED', False)
+    monkeypatch.setattr(tnative, '_FAILED', None)
+    if step == 'build':
+        def broken_build(verbose=True):
+            raise RuntimeError('g++: fatal error: no input files\nmore')
+        monkeypatch.setattr(native_build, 'lib_is_fresh', lambda: False)
+        monkeypatch.setattr(native_build, 'build', broken_build)
+        reason = 'build failed: RuntimeError: g++: fatal error: no input files'
+    else:
+        missing = os.path.join(REPO, 'build', 'torch_native', 'missing.so')
+        monkeypatch.setattr(native_build, 'lib_is_fresh', lambda: True)
+        monkeypatch.setattr(native_build, 'lib_path', lambda: missing)
+        reason = 'load failed: OSError: '
+    with caplog.at_level('WARNING', logger='proteus_tpu_torch.native'):
+        assert not tnative.available()
+        assert tnative.codec().startswith(f'pure-Python ({reason}')
+        assert tnative.codec().endswith(')')
+        assert tnative.lut8(np.zeros(4, np.uint8),
+                            np.arange(256, dtype=np.uint8)) is None
+    warnings = [r for r in caplog.records
+                if r.name == 'proteus_tpu_torch.native']
+    assert len(warnings) == 1 and warnings[0].levelname == 'WARNING'
+    assert reason in warnings[0].getMessage()
+
+
 # ---- CRS ----------------------------------------------------------------
 
 # one or more codes of each projection family, with a lon/lat box inside
