@@ -32,16 +32,25 @@ Phases, each printed on its own line; any failure exits nonzero:
    apart. The null kernel (phase 3d): the traffic floor
    ``null_fold`` against its plain twin at 3660^2 on int16, float32 and
    mixed inputs, 1, 3 and 8 of them, on an unaligned slice and a ragged
-   tail; its time beside the device copy bandwidth;
+   tail; its time beside the device copy bandwidth. The warp kernel
+   (phase 3e): ``device_resample`` against ``device_resample_plain`` on
+   the synthetic tile's own sources as ``warp_to_grid_device`` hands them
+   over (the DEM with its 50 px margin, cubic, 3760^2; CGLS, nearest,
+   3660^2; WorldCover, nearest, 10980^2), the DEM with NaN holes (masked,
+   cubic and bilinear), int16 and float32 nearest with a validity mask,
+   and lattices moved west over a wrapping source; out and amb bit for
+   bit, amb's population, one call's peak device memory and time, plain
+   against kernel, and the bound;
 4. main path: a full-size synthetic HLS tile (3660^2 bands, DEM with its
    50 px margin, 3x WorldCover grid) through
    ``python -m proteus_tpu_torch.cli.dswx_hls``'s ``main`` on ``cuda``
    three times: (c) the default run; (a) 'cover' mode on an Fmask where
    snow meets clear cloud-adjacent pixels, with ocean masking; (b)
    ``--offset-and-scale-inputs``. Each run's launch counts start at 0 and
-   must show its kernels; its layers are held against the numpy oracle,
-   (a)'s ocean against the host's distance-transform ocean mask, and (c)'s
-   DEM and SHAD against the host float64 warp and shadow;
+   must show its kernels (run (c) exactly 1 cubic and 2 nearest warps);
+   its layers are held against the numpy oracle, (a)'s ocean against the
+   host's distance-transform ocean mask, and (c)'s DEM and SHAD against
+   the host float64 warp and shadow;
 5. campaign: ``python -m proteus_tpu_torch.cli.dswx_campaign``'s ``main``
    on ``cuda`` over three jobs (tile A, a second tile B, a copy of A) at
    full size with DEM, CGLS, WorldCover, browse and
@@ -50,7 +59,8 @@ Phases, each printed on its own line; any failure exits nonzero:
    'cover' with a shoreline on run (a)'s Fmask. Each run's launch counts
    start at 0 and must show its slices; tile A's files are held against
    phase 4's run of the same mode, tile B's science layers against the
-   numpy oracle. Phase 5c: (g) and (h), campaigns (f) and (e) again
+   numpy oracle; each campaign's peak device memory beside its reading
+   with the eager warp. Phase 5c: (g) and (h), campaigns (f) and (e) again
    through ``CampaignRunner`` with each tile's rows cut over a 1 x 4 mesh
    of card 0 (``spatial_shards=4``, K6 spatial): their product files
    byte-identical to (f)'s and (e)'s but for the processing time, their
@@ -160,7 +170,7 @@ def phase_build():
     # one nvcc a source, all started together
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    names = ('wtr_kernel', 'null_kernel')
+    names = ('wtr_kernel', 'null_kernel', 'warp_kernel')
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build, names))
     for name, built in zip(names, builds):
@@ -1336,6 +1346,255 @@ def phase_null_vs_plain(torch, inputs, copy_bw):
     return {'null': stats['int16']}
 
 
+# operations of the warp kernel's steps, counted line by line in
+# csrc/warp_kernel.cu: one for each add, subtract, multiply, divide,
+# compare, select, logical operation, convert, floor, abs, min and max (a
+# negation folds into its add); loads and stores are the bytes side
+_W = {'two_sum': 6,
+      'two_prod': 1 + 2 * 4 + 8,  # p, the two Veltkamp splits, the error
+      'dd_norm': 3,
+      'near_edge': 8,             # abs, add, multiply, add, subtract, 2
+                                  # compares, or
+      # int64 range (4 compares, 3 ands), the 2 clamps (4 compares and
+      # selects), the flat index (multiply, add); a wrap's remainder 5
+      'gather': 4 + 3 + 4 + 2, 'wrap': 5,
+      # f32 boundary band: |hi| + 1e-30 (2), nextafterf (4), half ulp (2),
+      # coord_mag (4), spread (a subtract, nan_to_num's 3 compares and
+      # select), delta (5 multiplies, 2 adds), the test (2 abs, subtract,
+      # compare, or)
+      'band': 2 + 4 + 2 + 4 + 5 + 7 + 5}
+_W['dd_add'] = _W['two_sum'] + 2 + _W['dd_norm']
+_W['dd_mul_f32'] = _W['two_prod'] + 2 + _W['dd_norm']
+_W['dd_mul'] = _W['two_prod'] + 4 + _W['dd_norm']
+_W['dd_lerp'] = 2 * _W['dd_add'] + _W['dd_mul_f32']
+# floor, the two TwoSums and the add between, the shift (2 compares, 2
+# selects), the fraction's dd_add, the index (subtract, convert)
+_W['dd_floor'] = 1 + 2 * _W['two_sum'] + 1 + 4 + _W['dd_add'] + 2
+# the column index (multiply, floor, convert, 2 clamps, convert, subtract)
+# and the column lerps of u and v
+_W['interp'] = 7 + 2 * _W['dd_lerp']
+_W['poly_inner'] = _W['dd_mul_f32'] + 2 * _W['dd_add'] + 2 * _W['dd_mul']
+_W['poly_outer'] = _W['dd_mul_f32'] + 3 * _W['dd_add'] + 2 * _W['dd_mul']
+# the four cubic weights of one axis: f + 1, 1 - f, 2 - f and the polynomials
+_W['cubic_weights'] = 3 * _W['dd_add'] + 2 * _W['poly_inner'] \
+    + 2 * _W['poly_outer']
+# a tap's accumulation: fast (|term| and its add, NaN-propagating min and
+# max of 3 each, the dd sum), unmasked-wrap (+ the weight sum), masked
+# (ok's load test and and, the selects of |term|, vmin, vmax, the 4 dd
+# operands, and both dd sums)
+_W['accumulate'] = {0: 2 + 6 + _W['dd_add'],
+                    1: 2 + 6 + 2 * _W['dd_add'],
+                    2: 2 + 3 + 2 + 6 + 4 + 2 * _W['dd_add']}
+# the dd division (compare and select, 2 divides, the Newton step's
+# products and sums), good, the two ambiguity tests and err_scale
+_W['divide'] = 2 + 2 + _W['dd_mul_f32'] + _W['dd_add'] + _W['two_sum'] \
+    + _W['dd_norm'] + 2 + 4 + 5 + 4
+
+
+def _warp_ops(algorithm, mode, wraps, out_h, out_w, gw):
+    """The operations of one warp: each pixel's and each staged lattice
+    column's (the row lerps of u and v)."""
+    px = _W['interp'] + 2 * _W['dd_floor'] + 2 * _W['near_edge'] + 1
+    gather = _W['gather'] + (_W['wrap'] if wraps else 0)
+    if algorithm == 'nearest':
+        # in_range (3, 4 more without a wrap), the gather, ok, the select,
+        # amb's and
+        px += (3 if wraps else 7) + gather + 1 + 1 + 1
+    else:
+        taps = 2 if algorithm == 'bilinear' else 4
+        weights = 2 * (_W['dd_add'] if taps == 2 else _W['cubic_weights'])
+        tap = gather + _W['dd_mul'] + _W['dd_mul_f32'] \
+            + _W['accumulate'][mode]
+        px += 2 * _W['dd_add'] + weights + (3 if wraps else 7) \
+            + taps * taps * tap + (_W['divide'] if mode else 0) \
+            + _W['band'] + 2
+    return px * out_h * out_w + 2 * _W['dd_lerp'] * out_h * gw
+
+
+def _warp_bound(args, out_bytes):
+    """The least time of one warp: each input read once (the source window,
+    its validity, the lattice) and out and amb written once, over the
+    card's memory rate, against its operations over the float32 rate."""
+    data, valid, lat, _, out_h, out_w, algorithm, _, wraps, _ = args
+    mode = 2 if valid is not None else (1 if wraps else 0)
+    nbytes = data.numel() * data.element_size() + out_bytes \
+        + (valid.numel() if valid is not None else 0) \
+        + sum(t.numel() * 4 for t in lat)
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = _warp_ops(algorithm, mode, wraps, out_h, out_w,
+                       lat[0].shape[1]) / PEAK_OPS_PER_S * 1e3
+    return {'bound_ms': max(by_bytes, by_ops),
+            'bound_by': 'bytes' if by_bytes >= by_ops else 'operations',
+            'library_ms': None}
+
+
+class _Captured(Exception):
+    pass
+
+
+def _warp_args(torch, path, gt, length, width, algorithm, margin=0):
+    """The arguments ``warp_to_grid_device`` hands ``device_resample`` for
+    one source on the card: the source window, its validity, the lattice,
+    the geometry and the fill (the call itself is not made)."""
+    from proteus_tpu_torch.geo import warp
+    from proteus_tpu_torch.geo.crs import CRS
+    from proteus_tpu_torch.testing import synthetic
+    got = []
+
+    def capture(*args, **kw):
+        got.append(args + (kw['wraps'], kw['full_width']))
+        raise _Captured
+
+    real, warp.device_resample = warp.device_resample, capture
+    try:
+        warp.warp_to_grid_device(
+            path, gt, CRS.from_epsg(synthetic.EPSG).to_wkt(), length, width,
+            resample_algorithm=algorithm, margin_in_pixels=margin,
+            device=torch.device(DEVICE))
+    except _Captured:
+        pass
+    finally:
+        warp.device_resample = real
+    return got[0]
+
+
+def _peak_growth(torch, fn, args):
+    """One call's result and its peak device memory above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    result = fn(*args)
+    torch.cuda.synchronize()
+    return result, torch.cuda.max_memory_allocated() - base
+
+
+def phase_warp_vs_plain(torch, workdir):
+    """The warp kernel (``ops/warp_kernel.py``, through
+    ``geo/warp.py::device_resample``) against ``device_resample_plain`` on
+    the same card tensors, bit for bit: the synthetic tile's own sources
+    as ``warp_to_grid_device`` hands them over (the DEM with its 50 px
+    margin, cubic; CGLS and WorldCover, nearest), the DEM with NaN holes
+    (masked mode, cubic and bilinear), int16 and float32 nearest with a
+    validity mask, and the DEM's and CGLS's lattices shifted half a window
+    west over a wrapping source. Then each case's peak device memory of
+    one call and its time, plain against kernel, beside the bound."""
+    import numpy as np
+    from proteus_tpu_torch.geo import warp
+    from proteus_tpu_torch.ops import warp_kernel
+    from proteus_tpu_torch.testing import synthetic
+
+    say(f'== phase 3e: the warp kernel vs its plain twin on the synthetic '
+        f'tile\'s sources, {SIZE}x{SIZE}')
+    t0 = time.perf_counter()
+    src = os.path.join(workdir, 'warp_sources')
+    os.makedirs(src)
+    files = {'dem': synthetic.make_dem(src, size=SIZE),
+             'cgls': synthetic.make_landcover(src, size=SIZE),
+             'wc': synthetic.make_worldcover(src, size=SIZE)}
+    gt = synthetic.geotransform()
+    gt3 = (gt[0], gt[1] / 3, 0.0, gt[3], 0.0, gt[5] / 3)
+    dem = _warp_args(torch, files['dem'], gt, SIZE, SIZE, 'cubic', 50)
+    cgls = _warp_args(torch, files['cgls'], gt, SIZE, SIZE, 'nearest')
+    wc = _warp_args(torch, files['wc'], gt3, 3 * SIZE, 3 * SIZE, 'nearest')
+    say(f'sources written and their lattices made in '
+        f'{time.perf_counter() - t0:.1f} s; windows: DEM '
+        f'{tuple(dem[0].shape)}, CGLS {tuple(cgls[0].shape)}, WorldCover '
+        f'{tuple(wc[0].shape)}; lattices {tuple(dem[2][0].shape)}, '
+        f'{tuple(cgls[2][0].shape)}, {tuple(wc[2][0].shape)} (spacing '
+        f'{dem[3]}, {cgls[3]}, {wc[3]})')
+    if dem[1] is not None or cgls[1] is not None or wc[1] is not None:
+        raise AssertionError('a synthetic source has nodata pixels')
+
+    rng = np.random.default_rng(20261019)
+    d = dem[0].cpu().numpy()
+    yy, xx = np.mgrid[0:d.shape[0], 0:d.shape[1]]
+    holes = ((yy - d.shape[0] // 2) ** 2 + (xx - d.shape[1] // 3) ** 2
+             < (d.shape[0] // 10) ** 2) | (rng.random(d.shape) < 0.01)
+    d = d.copy()
+    d[holes] = np.nan
+    dem_holes = torch.from_numpy(d).to(DEVICE)
+    valid = torch.from_numpy(~holes).to(DEVICE)
+    dem_i16 = torch.round(dem[0]).to(torch.int16)
+
+    def west(lat, w):
+        # the lattice moved half a window west: columns < 0 wrap
+        return (lat[0] - w // 2, lat[1], lat[2], lat[3])
+
+    h_d, w_d = dem[0].shape
+    w_c = cgls[0].shape[1]
+    nan = float('nan')
+    cases = {
+        'DEM cubic (fast)': dem,
+        'DEM with holes, cubic (masked)':
+            (dem_holes, valid) + dem[2:],
+        'DEM with holes, bilinear (masked)':
+            (dem_holes, valid) + dem[2:6] + ('bilinear',) + dem[7:],
+        'CGLS nearest, uint8': cgls,
+        'WorldCover nearest, uint8': wc,
+        'DEM nearest, int16, holes (fill -32768)':
+            (dem_i16, valid) + dem[2:6] + ('nearest', -32768) + dem[8:],
+        'DEM nearest, float32, holes (fill NaN)':
+            (dem_holes, valid) + dem[2:6] + ('nearest', nan) + dem[8:],
+        'DEM cubic, wrapping (unmasked-wrap)':
+            dem[:2] + (west(dem[2], w_d),) + dem[3:8] + (True, w_d),
+        'DEM with holes, bilinear, wrapping (masked)':
+            (dem_holes, valid, west(dem[2], w_d)) + dem[3:6]
+            + ('bilinear',) + dem[7:8] + (True, w_d),
+        'CGLS nearest, wrapping':
+            cgls[:2] + (west(cgls[2], w_c),) + cgls[3:8] + (True, w_c),
+    }
+    stats = {}
+    for what, args in cases.items():
+        want, plain_peak = _peak_growth(torch, warp.device_resample_plain,
+                                        args)
+        got, peak = _peak_growth(torch, warp.device_resample, args)
+        out_bytes = got[0].numel() * (got[0].element_size() + 1)
+        for name, a, b in (('out', got[0], want[0]), ('amb', got[1],
+                                                      want[1])):
+            if a.dtype != b.dtype or not torch.equal(a.view(torch.uint8),
+                                                     b.view(torch.uint8)):
+                n = int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                raise AssertionError(f'warp, {what}: {name} differs from the '
+                                     f'plain twin in {n} bytes')
+        err = float((got[0].double() - want[0].double()).abs()
+                    .nan_to_num(0.0).max())
+        n_amb = int(got[1].sum())
+        row = {'max_abs_err': err, 'amb_px': n_amb,
+               'peak_bytes': peak, 'plain_peak_bytes': plain_peak,
+               **_warp_bound(args, out_bytes)}
+        del want, got
+        timed = what in ('DEM cubic (fast)', 'WorldCover nearest, uint8',
+                         'CGLS nearest, uint8',
+                         'DEM with holes, cubic (masked)')
+        if timed:
+            plain_ms = [_time_ms(torch, warp.device_resample_plain, [args],
+                                 2, cycles=1)]
+            kernel_ms = [_time_ms(torch, warp.device_resample, [args], 5),
+                         _time_ms(torch, warp.device_resample, [args], 5)]
+            plain_ms.append(_time_ms(torch, warp.device_resample_plain,
+                                     [args], 2, cycles=1))
+            row['ms'] = statistics.median(kernel_ms)
+            row['plain_ms'] = statistics.median(plain_ms)
+            times = (f'; kernel {row["ms"]:.4f} ms (runs {kernel_ms}), plain '
+                     f'{row["plain_ms"]:.4f} ms (runs {plain_ms}), bound '
+                     f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
+                     f'{row["bound_ms"] / row["ms"]:.1%} of the kernel time')
+        else:
+            times = f'; bound {row["bound_ms"]:.4f} ms ({row["bound_by"]})'
+        say(f'warp, {what}: {tuple(args[0].shape)} -> {args[4]}x{args[5]}; '
+            f'out and amb == plain twin bit for bit, amb {n_amb} px; one '
+            f'call\'s peak device memory {peak / 2**20:.1f} MiB (plain '
+            f'{plain_peak / 2**20:.1f} MiB){times}')
+        stats[what] = row
+    if min(warp_kernel.LAUNCHES.values()) < 1:
+        raise AssertionError(f'warp launches {warp_kernel.LAUNCHES}')
+    say(f'warp kernel == plain twin, bit for bit, in {len(cases)} cases; '
+        f'launches {warp_kernel.LAUNCHES}')
+    return {'warp_nearest': stats['WorldCover nearest, uint8'],
+            'warp_cubic': stats['DEM cubic (fast)']}
+
+
 class _Collect(logging.Handler):
     def __init__(self):
         super().__init__()
@@ -1345,19 +1604,32 @@ class _Collect(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+def _reset_counts():
+    """Set the launch counts of the main paths' kernels (the per-pixel
+    slices and the warp) to 0."""
+    from proteus_tpu_torch.ops import warp_kernel, wtr_kernel
+    for counts in (wtr_kernel.LAUNCHES, warp_kernel.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _read_counts():
+    """The launch counts of the per-pixel slices and the warp."""
+    from proteus_tpu_torch.ops import warp_kernel, wtr_kernel
+    return {**wtr_kernel.LAUNCHES, **warp_kernel.LAUNCHES}
+
+
 def _run_cli(torch, label, argv, expect):
     """One product run through the CLI's ``main`` with the launch counts
     set to 0 just before it; checks that each slice in ``expect`` launched
     and returns the counts."""
     from proteus_tpu_torch.cli.dswx_hls import main as dswx_hls_main
-    from proteus_tpu_torch.ops import wtr_kernel
 
     log = logging.getLogger('dswx_hls')
     collect = _Collect()
     log.addHandler(collect)
     torch.cuda.reset_peak_memory_stats()
-    for name in wtr_kernel.LAUNCHES:
-        wtr_kernel.LAUNCHES[name] = 0
+    _reset_counts()
     t0 = time.perf_counter()
     try:
         ok = dswx_hls_main(argv)
@@ -1366,7 +1638,7 @@ def _run_cli(torch, label, argv, expect):
         sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
         log.removeHandler(collect)
     wall = time.perf_counter() - t0
-    launches = dict(wtr_kernel.LAUNCHES)
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     if ok is not True:
         raise AssertionError(f'run {label}: generate_dswx_layers returned '
@@ -1503,9 +1775,15 @@ def phase_main_path(torch, workdir):
         for name, n in run.items():
             launches[name] = launches.get(name, 0) + n
 
-    # (c) the default run: int16, 'mask' (K1); DEM and SHAD vs the host
-    count(_run_cli(torch, 'c (default: int16, mask)', [rc['c']],
-                   ('wtr_k1',)))
+    # (c) the default run: int16, 'mask' (K1); DEM and SHAD vs the host;
+    # the DEM's cubic warp and the CGLS and WorldCover nearest warps
+    run = _run_cli(torch, 'c (default: int16, mask)', [rc['c']], ('wtr_k1',))
+    warps = {k: run[k] for k in ('warp_nearest', 'warp_bilinear',
+                                 'warp_cubic')}
+    if warps != {'warp_nearest': 2, 'warp_bilinear': 0, 'warp_cubic': 1}:
+        raise AssertionError(f'run c: warp launches {warps}; expected 2 '
+                             f'nearest and 1 cubic')
+    count(run)
     got = _read_layers(os.path.join(workdir, 'output_c'))
     _hold_against_oracle(oracle, 'c', got, ints, raw['Fmask'], invalid,
                          'mask')
@@ -1577,29 +1855,33 @@ def phase_main_path(torch, workdir):
     return launches, tile
 
 
+# peak device memory of each campaign when the warp was eager PyTorch
+# (PERF.md section 5; NVIDIA H100 80GB HBM3, 700.00 W)
+EAGER_WARP_PEAK_GIB = {'d': 8.997, 'e': 8.997, 'f': 9.009, 'g': 9.009, 'h': 11.011,
+                'cold': 24.72, 'warm': 9.01}
+
+
 def _fresh_campaign(torch):
     """A cold ancillary and payload cache, the stage times, the peak device
     memory and the launch counts set to 0, just before a campaign."""
     from proteus_tpu_torch.io.cog import PAYLOAD_CACHE
-    from proteus_tpu_torch.ops import wtr_kernel
     from proteus_tpu_torch.parallel import campaign
 
     campaign.ANCILLARY_CACHE.clear()
     PAYLOAD_CACHE.clear()
     campaign.STAGE_TIMES.reset()
     torch.cuda.reset_peak_memory_stats()
-    for name in wtr_kernel.LAUNCHES:
-        wtr_kernel.LAUNCHES[name] = 0
+    _reset_counts()
     return time.perf_counter()
 
 
-def _campaign_done(torch, label, t0, stats, expect, n_tiles):
+def _campaign_done(torch, label, t0, stats, expect, n_tiles, eager=None):
     """The counts just after a campaign: checks that its tiles are done
-    and each slice in ``expect`` launched; prints its wall and stage
-    core-seconds; returns the counts."""
-    from proteus_tpu_torch.ops import wtr_kernel
+    and each slice in ``expect`` launched; prints its wall, its peak device
+    memory (beside ``eager``, the same campaign's with the eager warp) and
+    stage core-seconds; returns the counts."""
     wall = time.perf_counter() - t0
-    launches = dict(wtr_kernel.LAUNCHES)
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     if stats['tiles_done'] != n_tiles or stats['tiles_failed']:
         raise AssertionError(f'campaign {label}: {stats}')
@@ -1608,15 +1890,17 @@ def _campaign_done(torch, label, t0, stats, expect, n_tiles):
             raise AssertionError(f'campaign {label} never launched {name}')
     say(f'campaign {label}: {wall:.2f} s wall for {n_tiles} tiles, '
         f'{wall / n_tiles:.2f} s/tile, launches {launches}, peak device memory '
-        f'{peak / 2**30:.3f} GiB; stage core-seconds (summed over pool '
-        f'threads):')
+        f'{peak / 2**30:.3f} GiB'
+        + (f' (with the eager warp: {eager} GiB)' if eager else '')
+        + '; stage core-seconds (summed over pool threads):')
     for name, entry in stats['stage_seconds'].items():
         say(f'    {name:<28} {entry["seconds"]:8.2f} s  {entry["calls"]:3d}'
             f' calls')
     return launches
 
 
-def _run_campaign(torch, label, argv, expect, stats_path, n_tiles=3):
+def _run_campaign(torch, label, argv, expect, stats_path, n_tiles=3,
+                  eager=None):
     """One campaign through the campaign CLI's ``main`` with the launch
     counts set to 0 just before it and a cold ancillary cache; checks that
     each slice in ``expect`` launched and returns the counts."""
@@ -1632,7 +1916,7 @@ def _run_campaign(torch, label, argv, expect, stats_path, n_tiles=3):
         sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
     with open(stats_path) as fh:
         stats = json.load(fh)
-    return _campaign_done(torch, label, t0, stats, expect, n_tiles)
+    return _campaign_done(torch, label, t0, stats, expect, n_tiles, eager)
 
 
 def _same_products(label, got, want, layers):
@@ -1692,7 +1976,8 @@ def phase_campaign(torch, workdir, tile):
         key = label[0]
         out = os.path.join(workdir, f'campaign_{key}')
         run = _run_campaign(torch, label, dirs + ['-o', out] + anc + extra,
-                            expect, os.path.join(workdir, f'stats_{key}.json'))
+                            expect, os.path.join(workdir, f'stats_{key}.json'),
+                            eager=EAGER_WARP_PEAK_GIB[key])
         for name, n in run.items():
             launches[name] = launches.get(name, 0) + n
         names = [os.path.basename(d) for d in dirs]
@@ -1758,7 +2043,8 @@ def _run_runner(torch, label, runner, jobs, expect):
     set to 0 just before it; returns the counts and the stats."""
     t0 = _fresh_campaign(torch)
     stats = runner.run(jobs)
-    return _campaign_done(torch, label, t0, stats, expect, len(jobs)), stats
+    return _campaign_done(torch, label, t0, stats, expect, len(jobs),
+                          EAGER_WARP_PEAK_GIB[label[0]]), stats
 
 
 def phase_spatial_campaign(torch, workdir, tile, ctx):
@@ -2045,8 +2331,7 @@ def phase_profile(torch, workdir, tile):
 
     say(f'== phase 7: the kernel-profile tool at {SIZE}x{SIZE}, the bench '
         f'twin, and a traced default run')
-    for name in wtr_kernel.LAUNCHES:
-        wtr_kernel.LAUNCHES[name] = 0
+    _reset_counts()
     null_kernel.LAUNCHES['null'] = 0
     out = os.path.join(workdir, 'kernel_profile.json')
     # 16 launches a pass: with the tool's default of 4 the first launch's
@@ -2054,7 +2339,7 @@ def phase_profile(torch, workdir, tile):
     rc = kernel_profile.main(['--size', str(SIZE), '--device', DEVICE,
                               '--iters', '16', '--out', out, '--trace-dir',
                               os.path.join(workdir, 'trace_profile')])
-    launches = {**wtr_kernel.LAUNCHES, **null_kernel.LAUNCHES}
+    launches = {**_read_counts(), **null_kernel.LAUNCHES}
     if rc != 0:
         raise AssertionError(f'kernel_profile exited with {rc}')
     with open(out) as fh:
@@ -2338,15 +2623,16 @@ def _ingested(tile_dir):
             image['geotransform'])
 
 
-def _tool_launches(wtr_kernel, launches, expect, what):
+def _tool_launches(launches, expect, what):
     """Add the launch counts since they were set to 0 to ``launches``,
-    check each slice in ``expect`` launched, and set them to 0 again."""
+    check each kernel in ``expect`` launched, and set them to 0 again."""
+    counts = _read_counts()
     for name in expect:
-        if wtr_kernel.LAUNCHES[name] < 1:
+        if counts[name] < 1:
             raise AssertionError(f'{what} never launched {name}')
-    for name, n in wtr_kernel.LAUNCHES.items():
+    for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
-        wtr_kernel.LAUNCHES[name] = 0
+    _reset_counts()
 
 
 def phase_tools(torch, workdir, tile):
@@ -2359,7 +2645,6 @@ def phase_tools(torch, workdir, tile):
     phase prints one a tool with the card's name and power limit."""
     from proteus_tpu_torch.geo.crs import CRS
     from proteus_tpu_torch.geo.polygon import create_ocean_mask
-    from proteus_tpu_torch.ops import wtr_kernel
     from proteus_tpu_torch.testing import synthetic
     from proteus_tpu_torch.tools import (bench_batch, bench_cold_grid,
                                          host_budget, soak_back_to_back)
@@ -2369,8 +2654,7 @@ def phase_tools(torch, workdir, tile):
     say(f'== phase 9: the campaign instruments at {SIZE}x{SIZE} on '
         f'{device} ({card})')
     launches = {}
-    for name in wtr_kernel.LAUNCHES:
-        wtr_kernel.LAUNCHES[name] = 0
+    _reset_counts()
 
     # 9a: 3 tiles on 3 distinct grids against 3 revisits of one grid
     root = os.path.join(workdir, 'tools_cold_grid')
@@ -2381,8 +2665,8 @@ def phase_tools(torch, workdir, tile):
                              out]) != 0:
         raise AssertionError('bench_cold_grid failed')
     wall = time.perf_counter() - t0
-    _tool_launches(wtr_kernel, launches, ('wtr_k1', 'wtr_k5', 'wtr_k6'),
-                   'bench_cold_grid')
+    _tool_launches(launches, ('wtr_k1', 'wtr_k5', 'wtr_k6', 'warp_nearest',
+                              'warp_cubic'), 'bench_cold_grid')
     with open(out) as fh:
         report = json.load(fh)
     wkt = CRS.from_epsg(synthetic.EPSG).to_wkt()
@@ -2405,6 +2689,9 @@ def phase_tools(torch, workdir, tile):
             invalid, 'mask', ocean=ocean)
         say(json.dumps({'tool': 'bench_cold_grid', 'run': label,
                         'card': card, **row}))
+        say(f'bench_cold_grid {label}: peak device memory '
+            f'{row["peak_device_memory_bytes"] / 2**30:.3f} GiB (with the '
+            f'eager warp: {EAGER_WARP_PEAK_GIB[label]} GiB)')
     say(f'bench_cold_grid: {wall:.1f} s with the inputs; cold '
         f'{report["cold"]["tiles_per_min"]:.2f} tiles/min, warm '
         f'{report["warm"]["tiles_per_min"]:.2f}, warm/cold '
@@ -2441,7 +2728,7 @@ def phase_tools(torch, workdir, tile):
                          workdir, '--device', device, '--out',
                          out]) != 0:
         raise AssertionError('host_budget failed')
-    _tool_launches(wtr_kernel, launches, ('wtr_k1',), 'host_budget')
+    _tool_launches(launches, ('wtr_k1',), 'host_budget')
     with open(out) as fh:
         budget = json.load(fh)
     say(json.dumps({'tool': 'host_budget', 'card': card,
@@ -2463,7 +2750,7 @@ def phase_tools(torch, workdir, tile):
                              '--out', out]
                             + (['--scaled'] if scaled else [])) != 0:
             raise AssertionError('bench_batch failed')
-        _tool_launches(wtr_kernel, launches, expect, 'bench_batch')
+        _tool_launches(launches, expect, 'bench_batch')
         with open(out) as fh:
             points = json.load(fh)['points']
         say(json.dumps({'tool': 'bench_batch', 'scaled': scaled,
@@ -2528,6 +2815,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     os.environ['PROTEUS_TPU_TORCH_DEVICE'] = DEVICE
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as workdir:
+        stats.update(phase_warp_vs_plain(torch, workdir))
+        torch.cuda.empty_cache()
         launches, tile = phase_main_path(torch, workdir)
         for name, n in phase_inexact_run(torch, workdir, tile).items():
             launches[name] = launches.get(name, 0) + n
@@ -2563,6 +2852,17 @@ def main(argv=None):
                     'source': 'proteus_tpu_torch/ops/csrc/null_kernel.cu',
                     'replaces': 'tools/kernel_profile.py:72',
                     'launches': launches.get('null', 0), **stats['null']})
+    # the warp replaces a jnp function run as one jit program, not a
+    # Pallas kernel; the main paths run nearest and cubic (bilinear only
+    # in phase 3e)
+    for name in ('warp_nearest', 'warp_cubic'):
+        row = {k: v for k, v in stats[name].items()
+               if k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                        'bound_by', 'library_ms')}
+        kernels.append({'name': name, 'route': 'cuda',
+                        'source': 'proteus_tpu_torch/ops/csrc/warp_kernel.cu',
+                        'replaces': 'proteus_tpu/geo/warp.py:521',
+                        'launches': launches.get(name, 0), **row})
     for kernel in kernels:
         if kernel['launches'] < 1:
             raise AssertionError(f'{kernel["name"]} was launched no time on '

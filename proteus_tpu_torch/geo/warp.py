@@ -12,10 +12,13 @@ weights, average) honoring the source nodata.
 The device half (``device_resample``, ``warp_to_grid_device``) ports
 :463-945. The source-coordinate lattice is interpolated in double-float32
 error-free transforms (``proteus_tpu_torch.core.eft``); cubic and bilinear
-kernels accumulate in double-float32 too. Every pixel whose device value
-sits inside the ambiguity band of a floor, a tap selection or an f32
-rounding boundary is re-evaluated on the host with the float64 pipeline
-of ``warp_to_grid``, so the result is bit-identical to the host warp.
+kernels accumulate in double-float32 too. On a card the resampler is the
+CUDA kernel of ``ops/warp_kernel.py``, which writes only the output and
+the ambiguity flags; ``device_resample_plain`` is its eager twin. Every
+pixel whose device value sits inside the ambiguity band of a floor, a tap
+selection or an f32 rounding boundary is re-evaluated on the host with
+the float64 pipeline of ``warp_to_grid``, so the result is bit-identical
+to the host warp.
 """
 
 import logging
@@ -27,6 +30,7 @@ import torch
 from proteus_tpu_torch.core.eft import f32, two_prod, two_sum
 from proteus_tpu_torch.geo.crs import CRS, transform_points
 from proteus_tpu_torch.io.tiff import TiffReader
+from proteus_tpu_torch.ops import warp_kernel
 
 logger = logging.getLogger('dswx_hls')
 
@@ -525,6 +529,25 @@ def device_resample(data, valid, lat, spacing, out_h, out_w, algorithm,
                     fill, wraps=False, full_width=None):
     """On-device warp of ``data`` (a 2-D tensor) onto the (out_h, out_w)
     grid; returns (out, ambiguous).
+
+    Dispatches on the tensors' device alone, after
+    ``ops/warp_kernel.py::check``: CUDA tensors launch the CUDA kernel
+    (``warp_kernel.resample``) or raise, CPU tensors run
+    ``device_resample_plain``. There is no fallback from the kernel to the
+    plain twin.
+    """
+    warp_kernel.check(data, valid, lat, spacing, algorithm)
+    if data.device.type == 'cpu':
+        return device_resample_plain(data, valid, lat, spacing, out_h, out_w,
+                                     algorithm, fill, wraps, full_width)
+    return warp_kernel.resample(data, valid, lat, spacing, out_h, out_w,
+                                algorithm, fill, wraps, full_width)
+
+
+def device_resample_plain(data, valid, lat, spacing, out_h, out_w,
+                          algorithm, fill, wraps=False, full_width=None):
+    """``device_resample`` in plain PyTorch (any device): the twin of the
+    CUDA kernel, op for op. Every intermediate is a full-size tensor.
 
     ``lat`` is (u_hi, u_lo, v_hi, v_lo): the window-relative source pixel
     coordinates of the float64 lattice as double-float32 tensors.
