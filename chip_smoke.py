@@ -38,9 +38,13 @@ Phases, each printed on its own line; any failure exits nonzero:
    over (the DEM with its 50 px margin, cubic, 3760^2; CGLS, nearest,
    3660^2; WorldCover, nearest, 10980^2), the DEM with NaN holes (masked,
    cubic and bilinear), int16 and float32 nearest with a validity mask,
-   and lattices moved west over a wrapping source; out and amb bit for
-   bit, amb's population, one call's peak device memory and time, plain
-   against kernel, and the bound;
+   lattices moved west over a wrapping source, the TwoProduct's edges
+   (+-0, subnormals, +-inf, NaN and +-3e38 among the DEM's values under
+   cubic and bilinear taps; lattice differences of about 1e-30 and
+   lattices scaled by 1e30, which take Dekker's split) and a uint8
+   window of 46,400^2 (64-bit indices); out and amb bit for bit, amb's
+   population, one call's peak device memory and time, plain against
+   kernel, and the bound;
 4. main path: a full-size synthetic HLS tile (3660^2 bands, DEM with its
    50 px margin, 3x WorldCover grid) through
    ``python -m proteus_tpu_torch.cli.dswx_hls``'s ``main`` on ``cuda``
@@ -1347,68 +1351,98 @@ def phase_null_vs_plain(torch, inputs, copy_bw):
 
 
 # operations of the warp kernel's steps, counted line by line in
-# csrc/warp_kernel.cu: one for each add, subtract, multiply, divide,
-# compare, select, logical operation, convert, floor, abs, min and max (a
-# negation folds into its add); loads and stores are the bytes side
+# csrc/warp_kernel.cuh on the path this run's data takes (regular pixels
+# whose products all pass the FMA's test; no pixel runs again with
+# Dekker's split): one for each add, subtract, multiply, divide,
+# compare, select, logical operation, shift, convert, floor, abs, min and
+# max, two for a fused multiply-add, as the 67 TFLOP/s float32 rate counts
+# one (a negation folds into its add; loads and stores are the bytes
+# side). The kernel fuses nothing else, by design: an unfused add or
+# multiply issues at half the rate that convention assumes, so an unfused
+# mix cannot pass about 50% of this bound.
 _W = {'two_sum': 6,
-      'two_prod': 1 + 2 * 4 + 8,  # p, the two Veltkamp splits, the error
       'dd_norm': 3,
       'near_edge': 8,             # abs, add, multiply, add, subtract, 2
                                   # compares, or
-      # int64 range (4 compares, 3 ands), the 2 clamps (4 compares and
-      # selects), the flat index (multiply, add); a wrap's remainder 5
-      'gather': 4 + 3 + 4 + 2, 'wrap': 5,
-      # f32 boundary band: |hi| + 1e-30 (2), nextafterf (4), half ulp (2),
-      # coord_mag (4), spread (a subtract, nan_to_num's 3 compares and
-      # select), delta (5 multiplies, 2 adds), the test (2 abs, subtract,
-      # compare, or)
-      'band': 2 + 4 + 2 + 4 + 5 + 7 + 5}
+      # the shift, clamp (compare, select), the shift back, subtract,
+      # convert, multiply of a row's or a column's cell
+      'cell': 7,
+      # in_window (2 compares, and), the clamp (2 compares, 2 selects), the
+      # row's multiply; a wrapping column's remainder (%, compare, add,
+      # select)
+      'gather_row': 3 + 4 + 1, 'gather_col': 3 + 4, 'wrap': 4,
+      # f32 boundary band: |hi| + 1e-30 (2), next_up (compare, add,
+      # select), half ulp (2), coord_mag (4), spread (a subtract,
+      # nan_to_num's compare, abs, compare, or and select), delta (5
+      # multiplies, 2 adds), the test (2 abs, subtract, compare, or)
+      'band': 2 + 3 + 2 + 4 + 6 + 7 + 5}
+# two_prod's FMA: p, the fused multiply-add, and the test of its operands
+# folded into the pixel's flag: |p| against 2^-100, a == 0, b == 0, 2 ors
+# and the flag's and (one compare and or fewer where b is a constant);
+# a lattice difference's bound (compare, and), a source value's or a
+# quotient's (2 compares, 2 ands)
+_W['two_prod'] = {'bounded': 1 + 2 + 3 + 2 + 1, 'constant': 1 + 2 + 2 + 1 + 1,
+                  'any_a': 1 + 2 + 3 + 2 + 1 + 2,
+                  'any_b': 1 + 2 + 3 + 2 + 1 + 4}
 _W['dd_add'] = _W['two_sum'] + 2 + _W['dd_norm']
-_W['dd_mul_f32'] = _W['two_prod'] + 2 + _W['dd_norm']
-_W['dd_mul'] = _W['two_prod'] + 4 + _W['dd_norm']
-_W['dd_lerp'] = 2 * _W['dd_add'] + _W['dd_mul_f32']
+_W['dd_mul_f32'] = {k: n + 2 + _W['dd_norm']
+                    for k, n in _W['two_prod'].items()}
+_W['dd_mul'] = _W['two_prod']['bounded'] + 4 + _W['dd_norm']
+# the row lerp of a staged column (the difference, its product, the sum)
+# and its difference to the next column; a pixel's column lerp
+_W['dd_lerp'] = 2 * _W['dd_add'] + _W['dd_mul_f32']['any_a']
+_W['stage'] = _W['dd_lerp'] + _W['dd_add']
+_W['column_lerp'] = _W['dd_mul_f32']['any_a'] + _W['dd_add']
 # floor, the two TwoSums and the add between, the shift (2 compares, 2
 # selects), the fraction's dd_add, the index (subtract, convert)
 _W['dd_floor'] = 1 + 2 * _W['two_sum'] + 1 + 4 + _W['dd_add'] + 2
-# the column index (multiply, floor, convert, 2 clamps, convert, subtract)
-# and the column lerps of u and v
-_W['interp'] = 7 + 2 * _W['dd_lerp']
-_W['poly_inner'] = _W['dd_mul_f32'] + 2 * _W['dd_add'] + 2 * _W['dd_mul']
-_W['poly_outer'] = _W['dd_mul_f32'] + 3 * _W['dd_add'] + 2 * _W['dd_mul']
+# the column's cell, the column lerps of u and v and the flag's branch
+_W['interp'] = _W['cell'] + 2 * _W['column_lerp'] + 1
+_W['poly_inner'] = _W['dd_mul_f32']['constant'] + 2 * _W['dd_add'] \
+    + 2 * _W['dd_mul']
+_W['poly_outer'] = _W['dd_mul_f32']['constant'] + 3 * _W['dd_add'] \
+    + 2 * _W['dd_mul']
 # the four cubic weights of one axis: f + 1, 1 - f, 2 - f and the polynomials
 _W['cubic_weights'] = 3 * _W['dd_add'] + 2 * _W['poly_inner'] \
     + 2 * _W['poly_outer']
-# a tap's accumulation: fast (|term| and its add, NaN-propagating min and
-# max of 3 each, the dd sum), unmasked-wrap (+ the weight sum), masked
-# (ok's load test and and, the selects of |term|, vmin, vmax, the 4 dd
+# a tap's accumulation: fast (|term| and its add, fminf, fmaxf, the dd
+# sum), unmasked-wrap (+ the weight sum), masked (ok: 2 ands and the
+# validity's compare; the selects of |term|, vmin, vmax and the 4 dd
 # operands, and both dd sums)
-_W['accumulate'] = {0: 2 + 6 + _W['dd_add'],
-                    1: 2 + 6 + 2 * _W['dd_add'],
-                    2: 2 + 3 + 2 + 6 + 4 + 2 * _W['dd_add']}
+_W['accumulate'] = {0: 2 + 2 + _W['dd_add'],
+                    1: 2 + 2 + 2 * _W['dd_add'],
+                    2: 3 + 2 + 1 + 2 + 2 + 4 + 2 * _W['dd_add']}
 # the dd division (compare and select, 2 divides, the Newton step's
-# products and sums), good, the two ambiguity tests and err_scale
-_W['divide'] = 2 + 2 + _W['dd_mul_f32'] + _W['dd_add'] + _W['two_sum'] \
-    + _W['dd_norm'] + 2 + 4 + 5 + 4
+# products and sums), good (compare, and), the two ambiguity tests and
+# err_scale (abs, max, divide)
+_W['divide'] = 2 + 2 + _W['dd_mul_f32']['any_b'] + _W['dd_add'] \
+    + _W['two_sum'] + _W['dd_norm'] + 2 + 4 + 4 + 3
 
 
 def _warp_ops(algorithm, mode, wraps, out_h, out_w, gw):
     """The operations of one warp: each pixel's and each staged lattice
     column's (the row lerps of u and v)."""
     px = _W['interp'] + 2 * _W['dd_floor'] + 2 * _W['near_edge'] + 1
-    gather = _W['gather'] + (_W['wrap'] if wraps else 0)
+    col = _W['gather_col'] + (_W['wrap'] if wraps else 0)
     if algorithm == 'nearest':
-        # in_range (3, 4 more without a wrap), the gather, ok, the select,
+        # in_range (3, 4 more without a wrap), the row and column, the flat
+        # index's add, ok (2 ands, the validity's compare), the select,
         # amb's and
-        px += (3 if wraps else 7) + gather + 1 + 1 + 1
+        px += (3 if wraps else 7) + _W['gather_row'] + col + 1 + 3 + 1 + 1
     else:
         taps = 2 if algorithm == 'bilinear' else 4
         weights = 2 * (_W['dd_add'] if taps == 2 else _W['cubic_weights'])
-        tap = gather + _W['dd_mul'] + _W['dd_mul_f32'] \
+        # the flat index's add, the weights' product, the term
+        tap = 1 + _W['dd_mul'] + _W['dd_mul_f32']['any_b'] \
             + _W['accumulate'][mode]
+        # the dd u - 0.5 and v - 0.5, center_in, each tap row's and
+        # column's gather, the regular test (2 abs, 2 compares, and) and
+        # the flag's branch, the taps, the division, the band, amb's and
+        # and good's select
         px += 2 * _W['dd_add'] + weights + (3 if wraps else 7) \
-            + taps * taps * tap + (_W['divide'] if mode else 0) \
-            + _W['band'] + 2
-    return px * out_h * out_w + 2 * _W['dd_lerp'] * out_h * gw
+            + taps * (_W['gather_row'] + col) + 6 + taps * taps * tap \
+            + (_W['divide'] if mode else 0) + _W['band'] + 2
+    return px * out_h * out_w + 2 * _W['stage'] * out_h * gw
 
 
 def _warp_bound(args, out_bytes):
@@ -1417,7 +1451,10 @@ def _warp_bound(args, out_bytes):
     card's memory rate, against its operations over the float32 rate."""
     data, valid, lat, _, out_h, out_w, algorithm, _, wraps, _ = args
     mode = 2 if valid is not None else (1 if wraps else 0)
-    nbytes = data.numel() * data.element_size() + out_bytes \
+    # nearest reads one element a pixel at most, however large the window
+    read = data.numel() if algorithm != 'nearest' \
+        else min(data.numel(), out_h * out_w)
+    nbytes = read * data.element_size() + out_bytes \
         + (valid.numel() if valid is not None else 0) \
         + sum(t.numel() * 4 for t in lat)
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1476,9 +1513,11 @@ def phase_warp_vs_plain(torch, workdir):
     as ``warp_to_grid_device`` hands them over (the DEM with its 50 px
     margin, cubic; CGLS and WorldCover, nearest), the DEM with NaN holes
     (masked mode, cubic and bilinear), int16 and float32 nearest with a
-    validity mask, and the DEM's and CGLS's lattices shifted half a window
-    west over a wrapping source. Then each case's peak device memory of
-    one call and its time, plain against kernel, beside the bound."""
+    validity mask, the DEM's and CGLS's lattices shifted half a window
+    west over a wrapping source, the DEM with the TwoProduct's edge
+    values, lattices that take its Dekker path, and a uint8 window of more
+    than 2^31 elements. Then each case's peak device memory of one call
+    and its time, the plain twin's too in four cases, beside the bound."""
     import numpy as np
     from proteus_tpu_torch.geo import warp
     from proteus_tpu_torch.ops import warp_kernel
@@ -1524,6 +1563,52 @@ def phase_warp_vs_plain(torch, workdir):
     h_d, w_d = dem[0].shape
     w_c = cgls[0].shape[1]
     nan = float('nan')
+    inf = float('inf')
+    # the TwoProduct's edges among the DEM's values (2% of its pixels): +-0,
+    # subnormals, the least normal, +-inf, NaN, +-3e38
+    edges = np.array([0.0, -0.0, 1e-40, -1e-40, 1.4e-45, -1.4e-45,
+                      1.1754942e-38, inf, -inf, nan, 3e38, -3e38],
+                     np.float32)
+    d = dem[0].cpu().numpy().copy()
+    pick = rng.random(d.shape) < 0.02
+    d[pick] = rng.choice(edges, int(pick.sum()))
+    dem_edges = torch.from_numpy(d).to(DEVICE)
+    del d
+
+    def tiny(lat):
+        # each hi plane the same along one axis, the lo planes about 1e-30
+        # apart: those lerps' differences are about 1e-30, below the FMA's
+        # product limit (Dekker's split)
+        shape = tuple(lat[0].shape)
+        lo = [torch.from_numpy(rng.uniform(-1e-30, 1e-30, shape)
+                               .astype(np.float32)).to(DEVICE)
+              for _ in range(2)]
+        return (lat[0][:1].expand(shape).contiguous(), lo[0],
+                lat[2][:, :1].expand(shape).contiguous(), lo[1])
+
+    def huge(lat):
+        # u x 1e30: its differences along a lattice row pass the FMA's
+        # operand bound of 2^100 (Dekker's split), and a wrapping source's
+        # pixels take the taps' unbounded weights (kUnknown)
+        return (lat[0] * 1e30, lat[1] * 1e30, lat[2], lat[3])
+
+    # a uint8 source of 46,400^2 (2.15 GB, more than 2^31 elements: 64-bit
+    # indices) under a 3660^2 grid whose last rows read beyond 2^31
+    big = 46400
+    gh, gw = cgls[2][0].shape
+    gi = np.arange(gh, dtype=np.float64)[:, None] * cgls[3]
+    gj = np.arange(gw, dtype=np.float64)[None, :] * cgls[3]
+    scale = (big - 10) / (SIZE - 1)
+    big_lat = tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+        for x in (gj * scale + 1e-3 * gi + 0.3, gi * scale - 1e-3 * gj + 0.2)
+        for a in warp._dd_split(x))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(20261017)
+    big_data = torch.randint(0, 255, (big, big), dtype=torch.uint8,
+                             device=DEVICE, generator=gen)
+    if big * big < 2 ** 31:
+        raise AssertionError('the big window takes 32-bit indices')
     cases = {
         'DEM cubic (fast)': dem,
         'DEM with holes, cubic (masked)':
@@ -1543,7 +1628,25 @@ def phase_warp_vs_plain(torch, workdir):
             + ('bilinear',) + dem[7:8] + (True, w_d),
         'CGLS nearest, wrapping':
             cgls[:2] + (west(cgls[2], w_c),) + cgls[3:8] + (True, w_c),
+        'DEM with edge values, cubic (fast)': (dem_edges,) + dem[1:],
+        'DEM with edge values, cubic (masked)':
+            (dem_edges, valid) + dem[2:],
+        'DEM with edge values, bilinear (fast)':
+            (dem_edges,) + dem[1:6] + ('bilinear',) + dem[7:],
+        'DEM cubic, lattice differences ~1e-30':
+            dem[:2] + (tiny(dem[2]),) + dem[3:],
+        'CGLS nearest, lattice differences ~1e-30':
+            cgls[:2] + (tiny(cgls[2]),) + cgls[3:],
+        'DEM cubic, wrapping, u x 1e30':
+            dem[:2] + (huge(west(dem[2], w_d)),) + dem[3:8] + (True, w_d),
+        'CGLS nearest, u x 1e30': cgls[:2] + (huge(cgls[2]),) + cgls[3:],
+        'uint8 nearest, 46400^2 window (64-bit indices)':
+            (big_data, None, big_lat, cgls[3], SIZE, SIZE, 'nearest', 255,
+             False, None),
     }
+    # output rows whose v (i * scale + 0.2, less 4 at most across a row)
+    # passes the first row past 2^31 elements of the big window
+    beyond = int(np.ceil((-(-2 ** 31 // big) + 4) / scale))
     stats = {}
     for what, args in cases.items():
         want, plain_peak = _peak_growth(torch, warp.device_resample_plain,
@@ -1557,6 +1660,8 @@ def phase_warp_vs_plain(torch, workdir):
                 n = int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
                 raise AssertionError(f'warp, {what}: {name} differs from the '
                                      f'plain twin in {n} bytes')
+        if args[0] is big_data and not (want[0][beyond:] != 255).any():
+            raise AssertionError('no pixel read beyond 2^31 elements')
         err = float((got[0].double() - want[0].double()).abs()
                     .nan_to_num(0.0).max())
         n_amb = int(got[1].sum())
@@ -1581,7 +1686,9 @@ def phase_warp_vs_plain(torch, workdir):
                      f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
                      f'{row["bound_ms"] / row["ms"]:.1%} of the kernel time')
         else:
-            times = f'; bound {row["bound_ms"]:.4f} ms ({row["bound_by"]})'
+            row['ms'] = _time_ms(torch, warp.device_resample, [args], 3)
+            times = (f'; kernel {row["ms"]:.4f} ms, bound '
+                     f'{row["bound_ms"]:.4f} ms ({row["bound_by"]})')
         say(f'warp, {what}: {tuple(args[0].shape)} -> {args[4]}x{args[5]}; '
             f'out and amb == plain twin bit for bit, amb {n_amb} px; one '
             f'call\'s peak device memory {peak / 2**20:.1f} MiB (plain '

@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels with nvcc into a shared library.
 
 Each ``csrc/*.cu`` file has a plain C entry point and is compiled on its
-own for Hopper (``sm_90a``) into ``build/torch_kernels/`` at the root of
-the checkout (an installed copy, which has no checkout around it, builds
-into ``~/.cache/proteus_tpu_torch/kernels/``), under a name keyed by a hash
-of the source and the flags, so a changed source is rebuilt and an
-unchanged one is reused. The library is
-loaded with ``ctypes``; it includes no PyTorch header, so a build takes
-seconds. Nothing here runs at import time.
+own (with the ``csrc/*.cuh`` headers it includes) for Hopper
+(``sm_90a``) into ``build/torch_kernels/`` at the root of the checkout (an
+installed copy, which has no checkout around it, builds into
+``~/.cache/proteus_tpu_torch/kernels/``), under a name keyed by a hash of
+the source, the headers and the flags, so a changed source is rebuilt and
+an unchanged one is reused. The library is loaded with ``ctypes``; it
+includes no PyTorch header, so a build takes seconds. Nothing here runs at
+import time.
 
 Usage (on a machine with nvcc): python -m proteus_tpu_torch.ops.build
 """
@@ -63,8 +64,12 @@ def build(name):
     if name in _LOADED:
         return _LOADED[name]
     src = os.path.join(CSRC, f'{name}.cu')
-    with open(src, 'rb') as fh:
-        digest = hashlib.sha256(fh.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    # the source and the headers beside it that it may include
+    for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                               if f.endswith('.cuh')):
+        with open(path, 'rb') as fh:
+            digest.update(fh.read())
     stem = os.path.join(BUILD_DIR, f'{name}_{digest.hexdigest()[:16]}')
     lib_path, log_path = stem + '.so', stem + '.log'
     seconds = 0.0

@@ -29,7 +29,11 @@ _ALGORITHMS = {'nearest': (0, 'warp_nearest'),
                'bilinear': (1, 'warp_bilinear'),
                'cubic': (2, 'warp_cubic'),
                'cubicspline': (2, 'warp_cubic')}
-MAX_STAGED_COLUMNS = 227 * 1024 // 16  # 4 float32 of a lattice column
+# a lattice column in shared memory: u, v and their differences to the
+# next column, dd float32 each
+MAX_STAGED_COLUMNS = 227 * 1024 // 32
+# the plain twin's row and column numbers are exact float32 below 2^24
+MAX_OUTPUT_SIDE = 2 ** 24
 
 
 def check(data, valid, lat, spacing, algorithm):
@@ -86,7 +90,7 @@ def _bind(lib):
     if lib.warp_launch.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.warp_launch.argtypes = [
-            p, p, p, p, p, p, ll, ll, ll, ll, ctypes.c_float, ll, ll, i, i,
+            p, p, p, p, p, p, ll, ll, ll, ll, i, ll, ll, i, i,
             ctypes.c_ulonglong, i, ll, p, p, p]
         lib.warp_launch.restype = i
         lib.warp_error_string.argtypes = [i]
@@ -101,6 +105,38 @@ def fill_bits(fill, dtype):
     return int.from_bytes(bytes(raw.tolist()), 'little')
 
 
+def check_launch(lat, out_h, out_w, wraps, full_width):
+    """Raise ValueError unless the kernel can launch this geometry: the
+    staged lattice row fits in shared memory, each output side is in
+    [1, 2^24] and a wrapping source has its period."""
+    gh, gw = lat[0].shape
+    if gw > MAX_STAGED_COLUMNS:
+        raise ValueError(f'device warp: a lattice row of {gw} columns does '
+                         f'not fit in shared memory (at most '
+                         f'{MAX_STAGED_COLUMNS})')
+    if not (1 <= out_h <= MAX_OUTPUT_SIDE and 1 <= out_w <= MAX_OUTPUT_SIDE):
+        raise ValueError(f'device warp: cannot launch an output of '
+                         f'{out_h} x {out_w}')
+    if wraps and (full_width is None or full_width < 1):
+        raise ValueError('device warp: a wrapping source needs full_width')
+
+
+def launch_args(data, valid, lat, spacing, out_h, out_w, algorithm, fill,
+                wraps, full_width, out, amb):
+    """``warp_launch``'s arguments but the stream, for tensors that
+    ``check`` and ``check_launch`` passed and the outputs ``out`` and
+    ``amb``."""
+    gh, gw = lat[0].shape
+    h, w = data.shape
+    width = full_width if wraps else 0
+    return (data.data_ptr(), None if valid is None else valid.data_ptr(),
+            *[t.data_ptr() for t in lat], h, w, gh, gw,
+            spacing.bit_length() - 1, out_h, out_w,
+            _ALGORITHMS[algorithm][0], data.element_size(),
+            fill_bits(fill, out.dtype), int(bool(wraps)), width,
+            out.data_ptr(), amb.data_ptr())
+
+
 def resample(data, valid, lat, spacing, out_h, out_w, algorithm, fill,
              wraps=False, full_width=None):
     """Launch the kernel on checked CUDA tensors (``check``); returns
@@ -111,38 +147,23 @@ def resample(data, valid, lat, spacing, out_h, out_w, algorithm, fill,
     if device.type != 'cuda':
         raise ValueError(f'device warp: the kernel takes CUDA tensors, not '
                          f'{device}')
-    gh, gw = lat[0].shape
-    if gw > MAX_STAGED_COLUMNS:
-        raise ValueError(f'device warp: a lattice row of {gw} columns does '
-                         f'not fit in shared memory (at most '
-                         f'{MAX_STAGED_COLUMNS})')
-    if out_h < 1 or out_w < 1 or out_h >= 2 ** 31:
-        raise ValueError(f'device warp: cannot launch an output of '
-                         f'{out_h} x {out_w}')
-    if wraps and (full_width is None or full_width < 1):
-        raise ValueError('device warp: a wrapping source needs full_width')
-    code, counter = _ALGORITHMS[algorithm]
+    check_launch(lat, out_h, out_w, wraps, full_width)
     out_dtype = data.dtype if algorithm == 'nearest' else torch.float32
-    h, w = data.shape
-    lib = _bind(build('warp_kernel').lib)
     out = torch.empty((out_h, out_w), dtype=out_dtype, device=device)
     amb = torch.empty((out_h, out_w), dtype=torch.bool, device=device)
+    args = launch_args(data, valid, lat, spacing, out_h, out_w, algorithm,
+                       fill, wraps, full_width, out, amb)
+    lib = _bind(build('warp_kernel').lib)
     # the launch goes to the current device and the stream handle is that
     # device's: make the tensors' device current
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.warp_launch(
-            data.data_ptr(), None if valid is None else valid.data_ptr(),
-            *[t.data_ptr() for t in lat], h, w, gh, gw, 1.0 / spacing,
-            out_h, out_w, code, data.element_size(),
-            fill_bits(fill, out_dtype), int(bool(wraps)),
-            full_width if wraps else 0, out.data_ptr(), amb.data_ptr(),
-            stream)
+        err = lib.warp_launch(*args, stream)
     if err:
         msg = lib.warp_error_string(err).decode()
         raise RuntimeError(f'warp kernel launch failed: CUDA error {err} '
                            f'({msg})')
-    count(counter)
+    count(_ALGORITHMS[algorithm][1])
     return out, amb
 
 

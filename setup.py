@@ -28,7 +28,7 @@ setup(
                   'proteus_tpu_torch.config': ['defaults/*.yaml',
                                                'schemas/*.yaml'],
                   'proteus_tpu_torch.native': ['tiffturbo.cpp'],
-                  'proteus_tpu_torch.ops': ['csrc/*.cu']},
+                  'proteus_tpu_torch.ops': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.9',
     install_requires=['numpy', 'scipy', 'jax', 'pyyaml', 'pillow'],
     entry_points={

@@ -216,6 +216,31 @@ def test_the_wrappers_checks_raise(name):
     assert warp_kernel.LAUNCHES == before
 
 
+LIMITS = {  # lattice columns, out_h, out_w, wraps, full_width -> launches
+    'the widest staged row, 7,264 columns': (7264, 41, 53, False, None, True),
+    'a row of 7,265 columns': (7265, 41, 53, False, None, False),
+    'an output side of 2^24': (8, 2 ** 24, 1, False, None, True),
+    'an output side of 2^24 + 1': (8, 1, 2 ** 24 + 1, False, None, False),
+    'an empty output': (8, 0, 53, False, None, False),
+    'a wrap without its period': (8, 41, 53, True, None, False),
+    'a wrap with its period': (8, 41, 53, True, 45, True),
+}
+
+
+@pytest.mark.parametrize('name', LIMITS)
+def test_launch_limits(name):
+    """``check_launch`` takes a lattice row of at most 7,264 columns (the
+    staged row and its column differences, 32 B a column, in 227 KiB of
+    shared memory) and output sides in [1, 2^24], and raises beyond."""
+    gw, out_h, out_w, wraps, full_width, launches = LIMITS[name]
+    lat = tuple(torch.empty((2, gw), device='meta') for _ in range(4))
+    if launches:
+        warp_kernel.check_launch(lat, out_h, out_w, wraps, full_width)
+    else:
+        with pytest.raises(ValueError, match='device warp'):
+            warp_kernel.check_launch(lat, out_h, out_w, wraps, full_width)
+
+
 def test_launch_counts_lose_no_update_across_threads():
     """The campaign's prep threads count their launches concurrently."""
     import sys
@@ -252,7 +277,7 @@ def test_fill_bits_are_the_plain_twins_fill():
 
 def _kernel_constant(name):
     src = os.path.join(os.path.dirname(warp_kernel.__file__), 'csrc',
-                       'warp_kernel.cu')
+                       'warp_kernel.cuh')
     with open(src) as fh:
         found = re.search(rf'constexpr int {name} = ([\d *]+);', fh.read())
     # an integer or a product such as 227 * 1024
@@ -265,25 +290,24 @@ THREADS = _kernel_constant('kThreads')
 def _staging(out_h, out_w, spacing):
     """The kernel's launch restated: block i (one output row) stages
     lattice rows i0, i0 + 1 at every column k that its threads t take
-    (k = t, t + THREADS, ... < gw), then thread t writes the row's pixels
+    (k = t, t + THREADS, ... < gw) and the differences of neighbouring
+    staged columns, then thread t writes the row's pixels
     j = t, t + THREADS, ... < out_w from the staged columns j0, j0 + 1.
-    i0 and j0 in float32 as the kernel computes them (i * inv, floorf,
-    clamp). Returns the lattice shape, the rows each block reads, the
-    columns it stages and the pixels it writes."""
+    i0 and j0 as the kernel computes them (i >> log2(spacing), clamped
+    to the lattice's last cell). Returns the lattice shape, the rows each
+    block reads, the columns it stages and the pixels it writes."""
     gh = len(range(0, out_h + 2 * spacing, spacing))
     gw = len(range(0, out_w + 2 * spacing, spacing))
-    inv = np.float32(1.0 / spacing)
+    shift = spacing.bit_length() - 1
     i = np.arange(out_h)
-    i0 = np.clip(np.floor(i.astype(np.float32) * inv).astype(np.int64), 0,
-                 gh - 2)
+    i0 = np.minimum(i >> shift, gh - 2)
     t = np.arange(THREADS)[:, None]
     staged = t + THREADS * np.arange(-(-gw // THREADS))[None, :]
     staged = np.unique(staged[staged < gw])
     written = t + THREADS * np.arange(-(-out_w // THREADS))[None, :]
     written = written[written < out_w]
     j = np.sort(written)
-    j0 = np.clip(np.floor(j.astype(np.float32) * inv).astype(np.int64), 0,
-                 gw - 2)
+    j0 = np.minimum(j >> shift, gw - 2)
     return (gh, gw), i0, staged, j, j0
 
 
@@ -303,7 +327,7 @@ def test_row_staging_covers_every_pixels_lattice_nodes(out_h, out_w,
     # the grid once over the blocks
     assert np.array_equal(j, np.arange(out_w))
     # the staged row fits the block's shared memory
-    assert 16 * gw <= _kernel_constant('kMaxSmem')
+    assert 32 * gw <= _kernel_constant('kMaxSmem')
     assert gw <= warp_kernel.MAX_STAGED_COLUMNS
     # i0, j0 and the weights as the plain twin computes them
     inv = warp.f32(1.0 / spacing, torch.zeros(0))
@@ -313,6 +337,11 @@ def test_row_staging_covers_every_pixels_lattice_nodes(out_h, out_w,
         assert np.array_equal(idx, want.numpy())
         weight = (f - want.to(torch.float32)).numpy()
         assert ((weight >= 0) & (weight < 1)).all()
+        # the kernel's weight from the integers: (k - k0 spacing) * inv
+        shift = spacing.bit_length() - 1
+        numerator = (np.arange(n) - (idx << shift)).astype(np.float32)
+        assert np.array_equal((numerator * np.float32(inv)).view(np.uint32),
+                              weight.view(np.uint32))
 
 
 @pytest.mark.parametrize('dx,spacing', [(30.0, 8), (10.0, 32), (20.0, 16)])
