@@ -41,10 +41,15 @@ Phases, each printed on its own line; any failure exits nonzero:
    lattices moved west over a wrapping source, the TwoProduct's edges
    (+-0, subnormals, +-inf, NaN and +-3e38 among the DEM's values under
    cubic and bilinear taps; lattice differences of about 1e-30 and
-   lattices scaled by 1e30, which take Dekker's split) and a uint8
-   window of 46,400^2 (64-bit indices); out and amb bit for bit, amb's
-   population, one call's peak device memory and time, plain against
-   kernel, and the bound;
+   lattices scaled by 1e30, which take Dekker's split), a uint8
+   window of 46,400^2 (64-bit indices), and geometries past what a block
+   stages whole or past 2^24: WorldCover at grid spacing 1 (lattice rows
+   of 10,982 columns, also through ``warp_to_grid_device`` itself, against
+   the host warp), the DEM cubic on a 256 x 60,000 grid at spacing 8
+   (masked, wrapping, both), and 2 x (2^24 + 4,099) outputs, uint8
+   nearest and DEM cubic (the rounded float32 row and column numbers); out
+   and amb bit for bit, amb's population, one call's peak device memory
+   and time, plain against kernel, and the bound;
 4. main path: a full-size synthetic HLS tile (3660^2 bands, DEM with its
    50 px margin, 3x WorldCover grid) through
    ``python -m proteus_tpu_torch.cli.dswx_hls``'s ``main`` on ``cuda``
@@ -119,6 +124,12 @@ import time
 
 SIZE = 3660
 DEVICE = 'cuda'
+# phase 3e's geometries past a warp block's whole-row staging and past
+# exact float32 row numbers: a grid of WIDE_SIDE px at spacing 8 (lattice
+# rows of 7,502 columns, in column chunks) and outputs of 2 x LONG_SIDE px
+# (row and column numbers past 2^24)
+WIDE_SIDE = 60000
+LONG_SIDE = 2 ** 24 + 4099
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the card's memory rate and its float32 rate outside the tensor cores
 # (NVIDIA's H100 SXM data sheet), for each kernel's least time
@@ -1469,7 +1480,8 @@ class _Captured(Exception):
     pass
 
 
-def _warp_args(torch, path, gt, length, width, algorithm, margin=0):
+def _warp_args(torch, path, gt, length, width, algorithm, margin=0,
+               grid_spacing=None):
     """The arguments ``warp_to_grid_device`` hands ``device_resample`` for
     one source on the card: the source window, its validity, the lattice,
     the geometry and the fill (the call itself is not made)."""
@@ -1487,7 +1499,7 @@ def _warp_args(torch, path, gt, length, width, algorithm, margin=0):
         warp.warp_to_grid_device(
             path, gt, CRS.from_epsg(synthetic.EPSG).to_wkt(), length, width,
             resample_algorithm=algorithm, margin_in_pixels=margin,
-            device=torch.device(DEVICE))
+            grid_spacing=grid_spacing, device=torch.device(DEVICE))
     except _Captured:
         pass
     finally:
@@ -1515,14 +1527,19 @@ def phase_warp_vs_plain(torch, workdir):
     (masked mode, cubic and bilinear), int16 and float32 nearest with a
     validity mask, the DEM's and CGLS's lattices shifted half a window
     west over a wrapping source, the DEM with the TwoProduct's edge
-    values, lattices that take its Dekker path, and a uint8 window of more
-    than 2^31 elements. Then each case's peak device memory of one call
-    and its time, the plain twin's too in four cases, beside the bound."""
+    values, lattices that take its Dekker path, a uint8 window of more
+    than 2^31 elements, lattice rows that a block stages in column chunks
+    and output sides past 2^24. Then each case's peak device memory of one
+    call and its time, the plain twin's too in four cases, beside the
+    bound; and ``warp_to_grid_device`` at grid spacing 1 against the host
+    warp, with its one launch."""
     import numpy as np
     from proteus_tpu_torch.geo import warp
     from proteus_tpu_torch.ops import warp_kernel
+    from proteus_tpu_torch.ops.build import build
     from proteus_tpu_torch.testing import synthetic
 
+    lib = build('warp_kernel').lib
     say(f'== phase 3e: the warp kernel vs its plain twin on the synthetic '
         f'tile\'s sources, {SIZE}x{SIZE}')
     t0 = time.perf_counter()
@@ -1609,6 +1626,39 @@ def phase_warp_vs_plain(torch, workdir):
                              device=DEVICE, generator=gen)
     if big * big < 2 ** 31:
         raise AssertionError('the big window takes 32-bit indices')
+
+    def lattice(out_h, out_w, spacing, u, v):
+        # the dd lattice of u(gi, gj) and v(gi, gj) at a grid's nodes
+        gh = len(range(0, out_h + 2 * spacing, spacing))
+        gw = len(range(0, out_w + 2 * spacing, spacing))
+        gi = np.arange(gh, dtype=np.float64)[:, None] * spacing
+        gj = np.arange(gw, dtype=np.float64)[None, :] * spacing
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                     for x in (u(gi, gj), v(gi, gj))
+                     for a in warp._dd_split(x))
+
+    # lattice rows wider than a block's 7,264 staged columns (column
+    # chunks), and output sides past 2^24 (the twin's
+    # rounded float32 row and column numbers): WorldCover at grid spacing 1
+    # through warp_to_grid_device; the DEM on a 256 x WIDE_SIDE grid at
+    # spacing 8; a uint8 source (spacing 8) and the DEM (spacing 1) on
+    # 2 x LONG_SIDE grids
+    wc1 = _warp_args(torch, files['wc'], gt3, 256, 3 * SIZE, 'nearest',
+                     grid_spacing=1)
+    wide_lat = lattice(
+        256, WIDE_SIDE, 8,
+        lambda gi, gj: gj * ((w_d - 10) / WIDE_SIDE) + 1e-3 * gi + 2.3,
+        lambda gi, gj: gi * ((h_d - 10) / 256) + 1e-4 * gj + 1.7)
+    long8 = lattice(
+        2, LONG_SIDE, 8,
+        lambda gi, gj: gj * (4086 / LONG_SIDE) + 0.25 * gi + 0.3,
+        lambda gi, gj: gj * (1014 / LONG_SIDE) + 0.5 * gi + 0.2)
+    long1 = lattice(
+        2, LONG_SIDE, 1,
+        lambda gi, gj: gj * ((w_d - 10) / LONG_SIDE) + 0.25 * gi + 2.3,
+        lambda gi, gj: gj * ((h_d - 10) / LONG_SIDE) + 0.5 * gi + 1.7)
+    long_data = torch.randint(0, 255, (1024, 4096), dtype=torch.uint8,
+                              device=DEVICE, generator=gen)
     cases = {
         'DEM cubic (fast)': dem,
         'DEM with holes, cubic (masked)':
@@ -1643,6 +1693,22 @@ def phase_warp_vs_plain(torch, workdir):
         'uint8 nearest, 46400^2 window (64-bit indices)':
             (big_data, None, big_lat, cgls[3], SIZE, SIZE, 'nearest', 255,
              False, None),
+        'WorldCover nearest, grid spacing 1': wc1,
+        'DEM with holes, cubic (masked), spacing 8':
+            (dem_holes, valid, wide_lat, 8, 256, WIDE_SIDE, 'cubic', dem[7],
+             False, None),
+        'DEM cubic, wrapping (unmasked-wrap), spacing 8':
+            (dem[0], None, west(wide_lat, w_d), 8, 256, WIDE_SIDE, 'cubic',
+             dem[7], True, w_d),
+        'DEM with holes, cubic, wrapping (masked), spacing 8':
+            (dem_holes, valid, west(wide_lat, w_d), 8, 256, WIDE_SIDE,
+             'cubic', dem[7], True, w_d),
+        'uint8 nearest, spacing 8, sides past 2^24':
+            (long_data, None, long8, 8, 2, LONG_SIDE, 'nearest', 255, False,
+             None),
+        'DEM cubic, spacing 1, sides past 2^24':
+            (dem[0], None, long1, 1, 2, LONG_SIDE, 'cubic', dem[7], False,
+             None),
     }
     # output rows whose v (i * scale + 0.2, less 4 at most across a row)
     # passes the first row past 2^31 elements of the big window
@@ -1689,15 +1755,38 @@ def phase_warp_vs_plain(torch, workdir):
             row['ms'] = _time_ms(torch, warp.device_resample, [args], 3)
             times = (f'; kernel {row["ms"]:.4f} ms, bound '
                      f'{row["bound_ms"]:.4f} ms ({row["bound_by"]})')
-        say(f'warp, {what}: {tuple(args[0].shape)} -> {args[4]}x{args[5]}; '
-            f'out and amb == plain twin bit for bit, amb {n_amb} px; one '
-            f'call\'s peak device memory {peak / 2**20:.1f} MiB (plain '
+        gw = args[2][0].shape[1]
+        chunks = warp_kernel.chunking(lib, gw, *args[3:6])[1] // args[4]
+        say(f'warp, {what}: {tuple(args[0].shape)} -> {args[4]}x{args[5]} '
+            f'(lattice row {gw} columns, {chunks} block(s) a row); out and '
+            f'amb == plain twin bit for bit, amb {n_amb} px; one call\'s '
+            f'peak device memory {peak / 2**20:.1f} MiB (plain '
             f'{plain_peak / 2**20:.1f} MiB){times}')
         stats[what] = row
     if min(warp_kernel.LAUNCHES.values()) < 1:
         raise AssertionError(f'warp launches {warp_kernel.LAUNCHES}')
     say(f'warp kernel == plain twin, bit for bit, in {len(cases)} cases; '
         f'launches {warp_kernel.LAUNCHES}')
+    # the public function at grid spacing 1: one nearest launch, and the
+    # host float64 warp's values
+    from proteus_tpu_torch.geo.crs import CRS
+    wkt = CRS.from_epsg(synthetic.EPSG).to_wkt()
+    before = dict(warp_kernel.LAUNCHES)
+    got = warp.warp_to_grid_device(
+        files['wc'], gt3, wkt, 256, 3 * SIZE, resample_algorithm='nearest',
+        grid_spacing=1, device=torch.device(DEVICE))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in warp_kernel.LAUNCHES.items()}
+    want = warp.warp_to_grid(files['wc'], gt3, wkt, 256, 3 * SIZE,
+                             resample_algorithm='nearest', grid_spacing=1)
+    if launched != {'warp_nearest': 1, 'warp_bilinear': 0, 'warp_cubic': 0}:
+        raise AssertionError(f'warp_to_grid_device at grid spacing 1 '
+                             f'launched {launched}')
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError('warp_to_grid_device at grid spacing 1 differs '
+                             'from the host warp')
+    say(f'warp_to_grid_device, WorldCover 256x{3 * SIZE} at grid spacing 1: '
+        f'launches {launched}, == host float64 warp_to_grid')
     return {'warp_nearest': stats['WorldCover nearest, uint8'],
             'warp_cubic': stats['DEM cubic (fast)']}
 
@@ -1824,6 +1913,28 @@ def _hold_against_oracle(oracle, label, got, bands, fmask, invalid, mode,
         f'{dict(zip(vals.tolist(), counts.tolist()))}')
 
 
+def _sqrt_on_the_card(torch):
+    """``shadow._sqrt`` (x * rsqrt(x), the shadow's and the hillshade's
+    square root) on the card against float64: rsqrtf is documented within
+    2 ULP and the multiply rounds once more, so within 3 ULP, far inside
+    the bands (tests/test_torch_shadow.py holds the CPU to 2)."""
+    import numpy as np
+    from proteus_tpu_torch.models.dswx import shadow
+    rng = np.random.default_rng(11)
+    x = np.concatenate([
+        rng.uniform(1.0, 2.0, 10 ** 6),
+        np.exp2(rng.uniform(-126, 127, 10 ** 6)),
+        [0.0, np.inf, 1.0, 4.0]]).astype(np.float32)
+    got = shadow._sqrt(torch.from_numpy(x).to(DEVICE)).cpu().numpy()
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    ulps = int(np.abs(got.view(np.int32).astype(np.int64)
+                      - want.view(np.int32).astype(np.int64)).max())
+    say(f'shadow._sqrt on the card: within {ulps} ULP of float64 on '
+        f'{x.size} values')
+    if ulps > 3:
+        raise AssertionError(f'shadow._sqrt on the card: {ulps} ULP')
+
+
 def phase_main_path(torch, workdir):
     import shutil
     import numpy as np
@@ -1915,6 +2026,7 @@ def phase_main_path(torch, workdir):
         say(f'  {layer} classes: {dict(zip(vals.tolist(), counts.tolist()))}')
     say('run c: WTR, BWTR, CONF, DIAG, WTR-1, WTR-2, CLOUD == oracle; DEM '
         '== host warp; SHAD == host shadow (bit for bit)')
+    _sqrt_on_the_card(torch)
 
     # (a) int16, 'cover' (K1 + K2), ocean masking
     count(_run_cli(torch, 'a (int16, cover, ocean)', [rc['a']],

@@ -135,6 +135,24 @@ def _decision_boundaries(sun_azimuth_angle, sun_elevation_angle,
     return x_crit, t_crit
 
 
+def _sqrt(x):
+    """The square root of x >= 0 (NaN passes) without ``torch.sqrt``:
+    within 2 ULP on the CPU (tests/test_torch_shadow.py), within 3 on
+    CUDA, where rsqrtf is documented within 2 and the multiply rounds once
+    more (chip_smoke.py checks it on the card). Either is far inside the
+    bands that take it: the shadow's 1e-5 in x, a cosine below 1 (over 160
+    ULP), and the hillshade's 1e-8 relative, which ``_dd_sqrt``'s Newton
+    step reaches from either first guess. ``torch.sqrt`` on the CPU goes
+    through MKL's vector math, which in some fresh processes computes one
+    intra-op thread's share of its first call after other parallel work to
+    about 11 bits (3e-4 relative; ``tests/shadow_suspects.py``, suspect
+    'first-sqrt'): enough to move pixels across those bands. ``x *
+    torch.rsqrt(x)`` runs another kernel, in which that script found no
+    such error."""
+    finite = (x > 0) & (x < x.new_tensor(float('inf')))
+    return torch.where(finite, x * torch.rsqrt(x), x)
+
+
 def _shadow_comparison_space(dem, tsv, x_crit32, t_crit32, eps_x, eps_t,
                              psx=30, psy=30):
     """Device pass: f32 comparison-space decisions + uncertainty band.
@@ -145,7 +163,7 @@ def _shadow_comparison_space(dem, tsv, x_crit32, t_crit32, eps_x, eps_t,
     tn_x = -gx / psx
     tn_y = -gy / -abs(psy)
 
-    norm = torch.sqrt(tn_x ** 2 + tn_y ** 2 + 1.0)
+    norm = _sqrt(tn_x ** 2 + tn_y ** 2 + 1.0)
     x = (tn_x * tsv_x + tn_y * tsv_y + tsv_z) / norm
     t = tn_x * sin_az + tn_y * cos_az
 
@@ -330,7 +348,8 @@ def _host_hillshade_gdal(dem32, sun_azimuth_angle, sun_elevation_angle,
 
 # -- double-double float32 helpers (shadow.py:453-484). A pair (hi, lo) of
 #    float32 tensors stands for hi + lo. PyTorch's tensor-by-tensor division
-#    and sqrt are correctly rounded on the CPU and on CUDA; one Newton
+#    is correctly rounded on the CPU and on CUDA; the square root's first
+#    guess, ``_sqrt``, is within 2 ULP on the CPU and 3 on CUDA. One Newton
 #    refinement against an exact dd residual gives full dd accuracy either
 #    way. Every operand is a tensor: a Python float in a ``/`` would turn
 #    into a multiply by its reciprocal on CUDA.
@@ -357,7 +376,7 @@ def _dd_div(a, b):
 
 
 def _dd_sqrt(a):
-    s0 = torch.sqrt(a[0])
+    s0 = _sqrt(a[0])
     t = two_prod(s0, s0)
     r = _dd_add(a, (-t[0], -t[1]))
     c = (r[0] + r[1]) / (s0 + s0)

@@ -19,7 +19,8 @@ int check_device(const void* p) {
   return attr.device == current ? 0 : (int)cudaErrorInvalidDevice;
 }
 
-// Launches a kernel over `blocks` output rows on `stream`, raising its
+// Launches a kernel over `blocks` blocks on `stream` (one-dimensional:
+// blockIdx.x takes up to 2^31 - 1, y and z only 65,535), raising its
 // dynamic shared memory limit above the default 48 KB where needed.
 struct CudaLaunch {
   unsigned blocks;
@@ -45,10 +46,14 @@ struct CudaLaunch {
 // one byte a pixel). `valid` is null or h x w bools; lat holds four gh x gw
 // float32 planes; the lattice spacing is 2^shift. `fill_bits` is the fill's
 // bits in data's type (little-endian, the low elem_size bytes; float32 bits
-// for bilinear and cubic). The flat indices are 64-bit where h * w,
-// gh * gw, out_h * out_w or a wrap's full_width reaches 2^31, else 32-bit
-// (index64 in warp_kernel.cuh). Runs on `stream` (PyTorch's current stream
-// of the current device) and does not synchronise. Returns cudaGetLastError() after the launch,
+// for bilinear and cubic). Every side of the output and the lattice is
+// below 2^31; a block takes an output row, or a chunk of one where the
+// lattice row passes kStageColumns (chunk_columns in warp_kernel.cuh). The
+// flat indices are 64-bit where h * w, gh * gw, out_h * out_w or a wrap's
+// full_width reaches 2^31, else 32-bit (index64), and the row and column
+// numbers float32 roundings where a side passes 2^24 (rounded). Runs on
+// `stream` (PyTorch's current stream of the current device) and does not
+// synchronise. Returns cudaGetLastError() after the launch,
 // cudaErrorInvalidValue for bad arguments, and cudaErrorInvalidDevice for a
 // pointer of another card than the current one.
 extern "C" int warp_launch(const void* data, const void* valid,
@@ -69,7 +74,7 @@ extern "C" int warp_launch(const void* data, const void* valid,
     if (const int err = check_device(p)) return err;
   if (valid != nullptr)
     if (const int err = check_device(valid)) return err;
-  const CudaLaunch launch = {(unsigned)out_h, stage_bytes(a),
+  const CudaLaunch launch = {(unsigned)blocks(a), stage_bytes(a),
                              (cudaStream_t)stream};
   const int err = warp_dispatch(launch, a);
   return err < 0 ? (int)cudaErrorInvalidValue : err;

@@ -13,7 +13,8 @@
 //
 // For each output pixel (i, j):
 //   1. i0, j0, wi, wj from i and j with a shift and a mask (spacing is a
-//      power of two);
+//      power of two), or in a column chunk from the twin's float32 row and
+//      column numbers (exact up to 2^24, rounded past it);
 //   2. the double-float32 lattice (u_hi, u_lo, v_hi, v_lo; gh x gw) lerped
 //      over rows i0, i0 + 1 at wi, then over columns j0, j0 + 1 at wj;
 //   3. nearest: the exact dd floor of v and u, the ambiguity band of each,
@@ -27,15 +28,23 @@
 // bit for bit (chip_smoke.py phase 3e on the card,
 // tests/test_torch_warp_host.py on the CPU).
 //
-// Design: one block an output row. It stages the row-lerped lattice row
-// and the differences of its neighbouring columns (u and v, hi and lo:
-// 8 x gw floats) in shared memory once; then each thread takes every
-// blockDim-th pixel of the row and does only the column lerp and the
-// resampler. nearest copies the element as raw bits, one body
-// for element sizes 1, 2, 4 and 8 (uint8 CGLS and WorldCover, int16,
-// float32, ...). The index type I is int32_t wherever the window, the
-// output and the lattice each hold fewer than 2^31 elements (every call of
-// the main paths but a WorldCover window that passes 2^31), else int64_t.
+// Design: one block an output row (Layout kRows, every main path), or a
+// chunk of one where the lattice row does not fit in shared memory (more
+// than kStageColumns columns) or a side passes 2^24 (kChunks; the blocks
+// of a grid stay on blockIdx.x, which takes 2^31 - 1 of them). It stages
+// the row-lerped lattice columns its pixels fall between and the
+// differences of neighbouring columns (u and v, hi and lo: 8 floats a
+// column) in shared memory once; then each thread takes
+// every blockDim-th pixel of the row or chunk and does only the column
+// lerp and the resampler. kRows knows at compile time that a block starts
+// at column 0 and stages the whole lattice row: on the card a runtime
+// chunk cost its nearest kernel 7 registers (39, against 32) and the
+// main paths 2.7-3.2% (PERF.md §6). nearest copies the element as raw
+// bits, one body for element sizes 1, 2, 4 and 8 (uint8 CGLS and
+// WorldCover, int16, float32, ...). The index type I is int32_t wherever
+// the window, the output and the lattice each hold fewer than 2^31
+// elements (every call of the main paths but a WorldCover window that
+// passes 2^31), else int64_t.
 //
 // Bound: nearest moves out + amb + the source bytes it reads, about
 // 2-2.3 B a pixel, but does ~170 float and integer operations a pixel;
@@ -45,7 +54,7 @@
 // instructions: the exact TwoProduct with one fused multiply-add in place
 // of Dekker's 17 operations where the operands allow it, tested without a
 // branch a product; 32-bit indices; the column index from a shift; the
-// lattice's column differences staged once a row; and the bounds and
+// lattice's column differences staged once a block; and the bounds and
 // clamps of the taps' rows and columns computed once a row and once a
 // column.
 //
@@ -74,12 +83,20 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 namespace {
 
 enum Algorithm { kNearest = 0, kBilinear = 1, kCubic = 2 };
 // accumulation modes of bilinear and cubic (geo/warp.py, "accumulation
 // modes mirroring _resample_block")
 enum Mode { kFast = 0, kUnmaskedWrap = 1, kMasked = 2 };
+// How a block finds its pixels and their cells: kRows, an output row, its
+// cells from a shift, where the lattice row fits in shared memory and no
+// side passes 2^24 (every main path); kChunks, a chunk of an output row (a
+// wider lattice row; the whole row where it fits and a side passes 2^24),
+// its cells from the twin's float32 row and column numbers.
+enum Layout { kRows = 0, kChunks = 1 };
 
 constexpr int kThreads = 256;
 // bilinear and cubic: at least 3 blocks of kThreads an SM, so at most 80
@@ -100,8 +117,20 @@ constexpr float kFmaMinProduct = kTwoM50 * kTwoM50;
 constexpr float kFmaMaxOperand = (float)(1ull << 50) * (float)(1ull << 50);
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;
-// i and j are exact in float32, as the plain twin's torch.arange
-constexpr long long kMaxOutSide = 1ll << 24;
+// the lattice columns a block stages: u, v and their differences to the
+// next column, dd float32 each (32 B a column)
+constexpr int kStageColumns = kMaxSmem / (8 * sizeof(float));
+// the largest side of the output and of the lattice, and the most blocks:
+// row and column numbers, cells and blockIdx.x are int32
+constexpr long long kMaxSide = (1ll << 31) - 1;
+// sides up to 2^24 have exact float32 row and column numbers, as the plain
+// twin's torch.arange; past it they are rounded to nearest
+constexpr long long kExactSide = 1ll << 24;
+// how far the roundings of two float32 column numbers below 2^31 can widen
+// their distance: half an ulp of 2^30 each
+constexpr long long kRoundingSlack = 128;
+// a cell weight below 2^24 is a bounded operand of the FMA TwoProduct
+constexpr float kBoundedWeight = (float)(1 << 24);
 constexpr long long kInt32Elements = 1ll << 31;
 
 struct Lattice {
@@ -113,13 +142,16 @@ struct Lattice {
 
 template <typename I>
 struct Geom {
-  I h, w;          // the source window
-  I gh, gw;        // the lattice
-  float inv;       // 1 / spacing, exact
-  int shift;       // log2(spacing)
+  I h, w;           // the source window
+  I gh, gw;         // the lattice
+  float inv;        // 1 / spacing, exact
+  int shift;        // log2(spacing)
   I out_h, out_w;
   int wraps;
-  I full_width;    // the period of a wrapping source's columns
+  I full_width;     // the period of a wrapping source's columns
+  int32_t chunks;   // blocks an output row
+  int32_t chunk_w;  // output columns a block (the last of a row: the rest)
+  int layout;       // the Layout of the instantiations that take it
 };
 
 struct DD {
@@ -288,25 +320,38 @@ __device__ __forceinline__ void gather_col(const Geom<I>& g, int32_t col32,
   *col = clamp_index<I>(c, g.w - 1);
 }
 
-// k0 = k >> shift clamped to n - 2, and the weight (k - k0 spacing) /
-// spacing: the plain twin's floor(k * inv) and k * inv - k0 bit for bit,
-// since k < 2^24 and the weight's numerator are exact in float32
+// k0, the cell of output row or column k clamped to the lattice's last
+// (n - 2), and its weight, as the plain twin computes them from
+// f = float32(k) / spacing: floor(f), clamped, and f - float32(k0)
+// (kFloat, the chunks). Up to 2^24 k and the weight's numerator are exact
+// in float32, so k0 = k >> shift and (k - k0 spacing) / spacing are the
+// same bits (kRows). Past it float32(k) is k rounded to nearest, so
+// neighbouring k share a coordinate, as in the twin; k0 stays monotone in
+// k, and a clamped weight may pass 2^24.
 struct Cell {
   int32_t k0;
   float weight;
 };
 
-template <typename I>
+template <bool kFloat, typename I>
 __device__ __forceinline__ Cell cell(const Geom<I>& g, int32_t k, I n) {
+  if (kFloat) {
+    const float f = mul(__int2float_rn(k), g.inv);
+    // [CVT] the twin's floor(f).to(torch.int64); f <= 2^31, n - 2 < 2^31
+    const long long below = (long long)floorf(f);
+    const int32_t k0 = below < (long long)n - 2 ? (int32_t)below
+                                                : (int32_t)(n - 2);
+    return {k0, sub(f, __int2float_rn(k0))};
+  }
   const int32_t k0 =
       (k >> g.shift) < n - 2 ? (k >> g.shift) : (int32_t)(n - 2);
   return {k0, mul((float)(k - (k0 << g.shift)), g.inv)};
 }
 
 // g0 + d f with d = g1 - g0 staged: the lattice's differences are any
-// float (kAnyA); the weight f = (k - k0 spacing) / spacing is in [0, 1),
-// or below 2^24 where the lattice is too short for the output and k0 is
-// clamped
+// float (kAnyA); the weight f is the bounded operand, below 2^24: up to
+// 2^24 every weight is (k is), and past it a caller whose weight may be
+// clamped past 2^24 clears `exact` first (bounded_weight)
 template <bool kExact>
 __device__ __forceinline__ DD dd_lerp_staged(DD g0, DD d, float f,
                                              bool& exact) {
@@ -321,25 +366,53 @@ __device__ __forceinline__ DD dd_lerp(DD g0, DD g1, float f, bool& exact) {
       g0, dd_add(g1.hi, g1.lo, -g0.hi, -g0.lo), f, exact);
 }
 
-// The row lerp of the lattice for output row i, over every lattice column
-// k, into shared memory, and the differences of neighbouring columns: the
-// plain twin's column lerp computes g(k0 + 1) - g(k0) at every pixel, the
-// same dd sum of the same operands as here. stage holds 8 planes of gw
-// floats: u(k) hi and lo, u(k + 1) - u(k) hi and lo, then v's four.
-template <typename I>
+// Whether a cell weight is a bounded operand of the FMA TwoProduct: below
+// 2^24, as every weight of a side up to 2^24 is; past it a clamped weight
+// (a lattice shorter than the output) may not be, and takes Dekker's split.
+template <bool kFloat>
+__device__ __forceinline__ bool bounded_weight(float f) {
+  return !kFloat || f < kBoundedWeight;
+}
+
+// A chunk's block (kChunks): its output row i and columns
+// j_a .. j_a + width - 1 (chunk_w of them, the rest in a row's last), and
+// the lattice columns it stages, ka .. ka + n - 1 = k0(j_a) ..
+// k0(j_a + width - 1) + 1, which hold every pixel's k0 and k0 + 1 (k0 is
+// monotone in j, also past 2^24).
+template <bool kFloat, typename I>
+__device__ __forceinline__ void chunk_of(const Geom<I>& g, int32_t* i,
+                                         int32_t* j_a, int32_t* width,
+                                         int32_t* ka, int32_t* n) {
+  const int32_t b = blockIdx.x;
+  *i = b / g.chunks;
+  *j_a = (b - *i * g.chunks) * g.chunk_w;
+  const int32_t rest = (int32_t)g.out_w - *j_a;
+  *width = rest < g.chunk_w ? rest : g.chunk_w;
+  *ka = cell<kFloat>(g, *j_a, g.gw).k0;
+  *n = cell<kFloat>(g, *j_a + *width - 1, g.gw).k0 + 2 - *ka;
+}
+
+// The row lerp of the lattice for output row i, over lattice columns
+// ka .. ka + n - 1 (an output row's whole lattice row, or a chunk's), into
+// shared memory, and the differences of neighbouring columns: the plain
+// twin's column lerp computes g(k0 + 1) - g(k0) at every pixel, the same
+// dd sum of the same operands as here, whatever the chunk. stage holds 8
+// planes of n floats: u(k) hi and lo, u(k + 1) - u(k) hi and lo, then v's
+// four.
+template <bool kFloat, typename I>
 __device__ __forceinline__ void stage_row(const Lattice& lat,
                                           const Geom<I>& g, int32_t i,
+                                          int32_t ka, int32_t n,
                                           float* stage) {
-  const Cell r = cell(g, i, g.gh);
-  const I a = (I)r.k0 * g.gw;
+  const Cell r = cell<kFloat>(g, i, g.gh);
+  const I a = (I)r.k0 * g.gw + ka;
   const I b = a + g.gw;
-  const int32_t n = (int32_t)g.gw;
   for (int32_t k = threadIdx.x; k < n; k += blockDim.x) {
     const DD u0 = {lat.u_hi[a + k], lat.u_lo[a + k]};
     const DD u1 = {lat.u_hi[b + k], lat.u_lo[b + k]};
     const DD v0 = {lat.v_hi[a + k], lat.v_lo[a + k]};
     const DD v1 = {lat.v_hi[b + k], lat.v_lo[b + k]};
-    bool exact = true;
+    bool exact = bounded_weight<kFloat>(r.weight);
     DD u = dd_lerp<true>(u0, u1, r.weight, exact);
     DD v = dd_lerp<true>(v0, v1, r.weight, exact);
     if (!exact) {
@@ -362,16 +435,17 @@ __device__ __forceinline__ void stage_row(const Lattice& lat,
   }
 }
 
-// The column lerp of the staged row at output column j: (u, v) as dd.
-template <typename I>
-__device__ __forceinline__ void interp(const float* stage, const Geom<I>& g,
+// The column lerp at output column j of the staged lattice columns
+// ka .. ka + n - 1: (u, v) as dd.
+template <bool kFloat, typename I>
+__device__ __forceinline__ void interp(const float* stage, int32_t n,
+                                       int32_t ka, const Geom<I>& g,
                                        int32_t j, DD* u, DD* v) {
-  const Cell c = cell(g, j, g.gw);
-  const int32_t n = (int32_t)g.gw;
-  const float* const s = stage + c.k0;
+  const Cell c = cell<kFloat>(g, j, g.gw);
+  const float* const s = stage + (c.k0 - ka);
   const DD u0 = {s[0], s[n]}, du = {s[2 * n], s[3 * n]};
   const DD v0 = {s[4 * n], s[5 * n]}, dv = {s[6 * n], s[7 * n]};
-  bool exact = true;
+  bool exact = bounded_weight<kFloat>(c.weight);
   *u = dd_lerp_staged<true>(u0, du, c.weight, exact);
   *v = dd_lerp_staged<true>(v0, dv, c.weight, exact);
   if (!exact) {
@@ -380,25 +454,36 @@ __device__ __forceinline__ void interp(const float* stage, const Geom<I>& g,
   }
 }
 
+// The type that steps a block's pixels, m = t, t + blockDim.x, ... <
+// width, pixel j = j_a + m: kRows steps j itself (j_a = 0; no side passes
+// 2^24), as int32; chunks step m as a uint32, since j + blockDim.x may
+// pass 2^31 - 1.
+template <int kLayout>
+using Step = typename std::conditional<kLayout == kRows, int32_t,
+                                       uint32_t>::type;
+
 // nearest: T is an unsigned integer of the element's size, copied as bits
-template <typename T, typename I>
+template <typename T, typename I, int kLayout>
 __global__ void __launch_bounds__(kThreads)
     warp_nearest_kernel(const T* __restrict__ data,
                         const uint8_t* __restrict__ valid, Lattice lat,
                         Geom<I> g, T fill, T* __restrict__ out,
                         uint8_t* __restrict__ amb) {
+  constexpr bool kFloat = kLayout == kChunks;
   extern __shared__ float stage[];
-  const int32_t i = blockIdx.x;
-  stage_row(lat, g, i, stage);
+  int32_t i = blockIdx.x, j_a = 0, ka = 0, n = (int32_t)g.gw;
+  int32_t width = (int32_t)g.out_w;
+  if (kLayout != kRows) chunk_of<kFloat>(g, &i, &j_a, &width, &ka, &n);
+  stage_row<kFloat>(lat, g, i, ka, n, stage);
   __syncthreads();
-  T* const out_row = out + (I)i * g.out_w;
-  uint8_t* const amb_row = amb + (I)i * g.out_w;
+  T* const out_row = out + ((I)i * g.out_w + j_a);
+  uint8_t* const amb_row = amb + ((I)i * g.out_w + j_a);
   const float h1 = (float)(g.h + 1);
   const float w1 = (float)(g.w + 1);
-  const int32_t out_w = (int32_t)g.out_w;
-  for (int32_t j = threadIdx.x; j < out_w; j += blockDim.x) {
+  for (Step<kLayout> m = threadIdx.x; m < (Step<kLayout>)width;
+       m += blockDim.x) {
     DD u, v;
-    interp(stage, g, j, &u, &v);
+    interp<kFloat>(stage, n, ka, g, j_a + (int32_t)m, &u, &v);
     const Floor fr = dd_floor(v.hi, v.lo);
     const Floor fc = dd_floor(u.hi, u.lo);
     const bool a = near_edge(u.hi, fc.cf) || near_edge(v.hi, fr.cf);
@@ -411,8 +496,8 @@ __global__ void __launch_bounds__(kThreads)
     gather_col(g, fc.n, &col, &col_in);
     const I flat = offset + col;
     const bool ok = row_in && col_in && (valid == nullptr || valid[flat] != 0);
-    out_row[j] = ok ? data[flat] : fill;
-    amb_row[j] = (a && in_range) ? 1 : 0;
+    out_row[m] = ok ? data[flat] : fill;
+    amb_row[m] = (a && in_range) ? 1 : 0;
   }
 }
 
@@ -562,18 +647,21 @@ __device__ __forceinline__ Sums sum_taps(const float* __restrict__ data,
 }
 
 // bilinear (kTaps = 2, offsets 0, 1) and cubic (kTaps = 4, offsets -1 .. 2)
-template <int kTaps, int kMode, typename I>
+template <int kTaps, int kMode, typename I, int kLayout>
 __global__ void __launch_bounds__(kThreads, kTapsMinBlocks)
     warp_kernel_kernel(const float* __restrict__ data,
                        const uint8_t* __restrict__ valid, Lattice lat,
                        Geom<I> g, float fill, float* __restrict__ out,
                        uint8_t* __restrict__ amb) {
+  constexpr bool kFloat = kLayout == kChunks;
   extern __shared__ float stage[];
-  const int32_t i = blockIdx.x;
-  stage_row(lat, g, i, stage);
+  int32_t i = blockIdx.x, j_a = 0, ka = 0, n = (int32_t)g.gw;
+  int32_t width = (int32_t)g.out_w;
+  if (kLayout != kRows) chunk_of<kFloat>(g, &i, &j_a, &width, &ka, &n);
+  stage_row<kFloat>(lat, g, i, ka, n, stage);
   __syncthreads();
-  float* const out_row = out + (I)i * g.out_w;
-  uint8_t* const amb_row = amb + (I)i * g.out_w;
+  float* const out_row = out + ((I)i * g.out_w + j_a);
+  uint8_t* const amb_row = amb + ((I)i * g.out_w + j_a);
   const int32_t first = kTaps == 2 ? 0 : -1;
   const float hf = (float)g.h;
   const float wf = (float)g.w;
@@ -582,10 +670,10 @@ __global__ void __launch_bounds__(kThreads, kTapsMinBlocks)
   const float eps12 = (float)1e-12;
   const float tiny = (float)1e-30;
   const float regular = (float)(1 << 24);
-  const int32_t out_w = (int32_t)g.out_w;
-  for (int32_t j = threadIdx.x; j < out_w; j += blockDim.x) {
+  for (Step<kLayout> m = threadIdx.x; m < (Step<kLayout>)width;
+       m += blockDim.x) {
     DD u, v;
-    interp(stage, g, j, &u, &v);
+    interp<kFloat>(stage, n, ka, g, j_a + (int32_t)m, &u, &v);
     const DD uc = dd_add(u.hi, u.lo, -0.5f, 0.0f);
     const DD vc = dd_add(v.hi, v.lo, -0.5f, 0.0f);
     const Floor fu = dd_floor(uc.hi, uc.lo);
@@ -623,8 +711,8 @@ __global__ void __launch_bounds__(kThreads, kTapsMinBlocks)
             mul(s.err_scale, add(mul(s.macc, kTwoM40),
                                  mul(mul(s.spread, coord_mag), kTwoM42))));
     a = a || fabsf(sub(fabsf(s.res.lo), half_ulp)) < delta;
-    out_row[j] = good ? s.res.hi : fill;
-    amb_row[j] = (a && center_in) ? 1 : 0;
+    out_row[m] = good ? s.res.hi : fill;
+    amb_row[m] = (a && center_in) ? 1 : 0;
   }
 }
 
@@ -644,10 +732,37 @@ struct WarpArgs {
   uint8_t* amb;
 };
 
-// The shared memory of a block: the staged lattice row and its
+// Whether an output side passes 2^24, where the row and column numbers are
+// float32 roundings.
+inline bool rounded(const WarpArgs& a) {
+  return a.out_h > kExactSide || a.out_w > kExactSide;
+}
+
+// The output columns of a block. Where the lattice row fits in shared
+// memory (kStageColumns), a block takes a whole output row, as on every
+// main path. Else a chunk of W columns j_a .. j_b stages
+// k0(j_b) + 2 - k0(j_a) lattice columns, at most
+// floor((W - 1 + slack) / spacing) + 3 (the roundings of float32(j) widen
+// the distance by up to kRoundingSlack past 2^24, by 0 below), and
+// W = (kStageColumns - 3) spacing + 1 - slack fits.
+inline long long chunk_columns(const WarpArgs& a) {
+  if (a.gw <= kStageColumns) return a.out_w;
+  const long long w = ((long long)(kStageColumns - 3) << a.shift) + 1 -
+                      (rounded(a) ? kRoundingSlack : 0);
+  return w < a.out_w ? w : a.out_w;
+}
+
+// The blocks of a warp: out_h rows of chunks.
+inline long long blocks(const WarpArgs& a) {
+  const long long w = chunk_columns(a);
+  return a.out_h * ((a.out_w + w - 1) / w);
+}
+
+// The shared memory of a block: its staged lattice columns and their
 // differences.
 inline size_t stage_bytes(const WarpArgs& a) {
-  return 8 * sizeof(float) * (size_t)a.gw;
+  const long long n = a.gw < kStageColumns ? a.gw : kStageColumns;
+  return 8 * sizeof(float) * (size_t)n;
 }
 
 // 0 if the kernels take these arguments, else 1.
@@ -655,10 +770,10 @@ inline int bad_args(const WarpArgs& a) {
   if (a.data == nullptr || a.out == nullptr || a.amb == nullptr ||
       a.lat.u_hi == nullptr || a.lat.u_lo == nullptr ||
       a.lat.v_hi == nullptr || a.lat.v_lo == nullptr || a.h < 1 ||
-      a.w < 1 || a.gh < 2 || a.gw < 2 || a.out_h < 1 || a.out_w < 1 ||
-      a.out_h > kMaxOutSide || a.out_w > kMaxOutSide || a.shift < 0 ||
-      a.shift > 30 || (a.wraps && a.full_width < 1) ||
-      stage_bytes(a) > (size_t)kMaxSmem)
+      a.w < 1 || a.gh < 2 || a.gw < 2 || a.gh > kMaxSide ||
+      a.gw > kMaxSide || a.out_h < 1 || a.out_w < 1 ||
+      a.out_h > kMaxSide || a.out_w > kMaxSide || a.shift < 0 ||
+      a.shift > 30 || (a.wraps && a.full_width < 1) || blocks(a) > kMaxSide)
     return 1;
   if (a.algorithm != kNearest && a.elem_size != 4) return 1;
   return 0;
@@ -675,62 +790,89 @@ inline bool index64(const WarpArgs& a) {
          (a.wraps && a.full_width >= kInt32Elements);
 }
 
+// The kernels' geometry, every field derived from `a` here.
 template <typename I>
 Geom<I> geom(const WarpArgs& a) {
   const float inv = 1.0f / (float)(1ll << a.shift);  // exact
+  const long long w = chunk_columns(a);
+  const int layout = rounded(a) || a.gw > kStageColumns ? kChunks : kRows;
   return {(I)a.h, (I)a.w, (I)a.gh, (I)a.gw, inv, a.shift, (I)a.out_h,
-          (I)a.out_w, a.wraps ? 1 : 0, (I)(a.wraps ? a.full_width : 1)};
+          (I)a.out_w, a.wraps ? 1 : 0, (I)(a.wraps ? a.full_width : 1),
+          (int32_t)((a.out_w + w - 1) / w), (int32_t)w, layout};
 }
 
-template <typename T, typename I, typename Launch>
-int launch_nearest(const Launch& launch, const WarpArgs& a) {
-  return launch(warp_nearest_kernel<T, I>, (const T*)a.data, a.valid, a.lat,
-                geom<I>(a), (T)a.fill_bits, (T*)a.out, a.amb);
+template <typename T, int kLayout, typename I, typename Launch>
+int launch_nearest(const Launch& launch, const WarpArgs& a,
+                   const Geom<I>& g) {
+  return launch(warp_nearest_kernel<T, I, kLayout>, (const T*)a.data,
+                a.valid, a.lat, g, (T)a.fill_bits, (T*)a.out, a.amb);
 }
 
-template <int kTaps, typename I, typename Launch>
-int launch_taps(const Launch& launch, const WarpArgs& a) {
+template <int kTaps, int kLayout, typename I, typename Launch>
+int launch_taps(const Launch& launch, const WarpArgs& a, const Geom<I>& g) {
   const uint32_t bits = (uint32_t)a.fill_bits;
   float fill;
   memcpy(&fill, &bits, sizeof(fill));
-  const Geom<I> g = geom<I>(a);
   const float* data = (const float*)a.data;
   float* out = (float*)a.out;
   if (a.valid != nullptr)
-    return launch(warp_kernel_kernel<kTaps, kMasked, I>, data, a.valid,
-                  a.lat, g, fill, out, a.amb);
+    return launch(warp_kernel_kernel<kTaps, kMasked, I, kLayout>, data,
+                  a.valid, a.lat, g, fill, out, a.amb);
   if (a.wraps)
-    return launch(warp_kernel_kernel<kTaps, kUnmaskedWrap, I>, data, a.valid,
-                  a.lat, g, fill, out, a.amb);
-  return launch(warp_kernel_kernel<kTaps, kFast, I>, data, a.valid, a.lat, g,
-                fill, out, a.amb);
+    return launch(warp_kernel_kernel<kTaps, kUnmaskedWrap, I, kLayout>, data,
+                  a.valid, a.lat, g, fill, out, a.amb);
+  return launch(warp_kernel_kernel<kTaps, kFast, I, kLayout>, data, a.valid,
+                a.lat, g, fill, out, a.amb);
 }
 
-template <typename I, typename Launch>
-int launch_as(const Launch& launch, const WarpArgs& a) {
+template <int kLayout, typename I, typename Launch>
+int launch_with(const Launch& launch, const WarpArgs& a, const Geom<I>& g) {
   if (a.algorithm == kNearest) {
     switch (a.elem_size) {
-      case 1: return launch_nearest<uint8_t, I>(launch, a);
-      case 2: return launch_nearest<uint16_t, I>(launch, a);
-      case 4: return launch_nearest<uint32_t, I>(launch, a);
-      case 8: return launch_nearest<uint64_t, I>(launch, a);
+      case 1: return launch_nearest<uint8_t, kLayout>(launch, a, g);
+      case 2: return launch_nearest<uint16_t, kLayout>(launch, a, g);
+      case 4: return launch_nearest<uint32_t, kLayout>(launch, a, g);
+      case 8: return launch_nearest<uint64_t, kLayout>(launch, a, g);
       default: return -1;
     }
   }
-  if (a.algorithm == kBilinear) return launch_taps<2, I>(launch, a);
-  if (a.algorithm == kCubic) return launch_taps<4, I>(launch, a);
+  if (a.algorithm == kBilinear) return launch_taps<2, kLayout>(launch, a, g);
+  if (a.algorithm == kCubic) return launch_taps<4, kLayout>(launch, a, g);
   return -1;
 }
 
+// The instantiations of g.layout.
+template <typename I, typename Launch>
+int launch_layout(const Launch& launch, const WarpArgs& a, const Geom<I>& g) {
+  return g.layout == kRows ? launch_with<kRows>(launch, a, g)
+                           : launch_with<kChunks>(launch, a, g);
+}
+
 // Run the instantiation that `a` selects (bad_args(a) == 0), with 32-bit
-// indices unless index64(a): `launch` is called as launch(kernel, kernel's
-// arguments...) and runs the kernel over a.out_h blocks of kThreads with
-// stage_bytes(a) of shared memory. Returns launch's result, or -1 for an
-// element size or algorithm no kernel takes.
+// indices unless index64(a) and the layout geom(a) takes:
+// `launch` is called as launch(kernel, kernel's arguments...) and runs the
+// kernel over blocks(a) blocks of kThreads with stage_bytes(a) of shared
+// memory. Returns launch's result, or -1 for an element size or algorithm
+// no kernel takes.
 template <typename Launch>
 int warp_dispatch(const Launch& launch, const WarpArgs& a) {
-  return index64(a) ? launch_as<int64_t>(launch, a)
-                    : launch_as<int32_t>(launch, a);
+  return index64(a) ? launch_layout(launch, a, geom<int64_t>(a))
+                    : launch_layout(launch, a, geom<int32_t>(a));
 }
 
 }  // namespace
+
+// The output columns of a block and the blocks of a warp of these sizes
+// (chunk_columns, blocks), for the wrapper's check (ops/warp_kernel.py::
+// chunking); every library that includes this header exports it.
+extern "C" void warp_chunking(long long gw, int shift, long long out_h,
+                              long long out_w, long long* chunk_w,
+                              long long* n_blocks) {
+  WarpArgs a = {};
+  a.gw = gw;
+  a.shift = shift;
+  a.out_h = out_h;
+  a.out_w = out_w;
+  *chunk_w = chunk_columns(a);
+  *n_blocks = blocks(a);
+}

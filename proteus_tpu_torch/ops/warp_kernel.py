@@ -29,11 +29,13 @@ _ALGORITHMS = {'nearest': (0, 'warp_nearest'),
                'bilinear': (1, 'warp_bilinear'),
                'cubic': (2, 'warp_cubic'),
                'cubicspline': (2, 'warp_cubic')}
-# a lattice column in shared memory: u, v and their differences to the
-# next column, dd float32 each
+# the lattice columns a block stages in shared memory (u, v and their
+# differences to the next column, dd float32 each): a block takes an output
+# row where the lattice row fits, else a chunk of one (``chunking``)
 MAX_STAGED_COLUMNS = 227 * 1024 // 32
-# the plain twin's row and column numbers are exact float32 below 2^24
-MAX_OUTPUT_SIDE = 2 ** 24
+# the largest side of the output and of the lattice, and the most blocks:
+# the kernel's row and column numbers and blockIdx.x are int32
+MAX_SIDE = 2 ** 31 - 1
 
 
 def check(data, valid, lat, spacing, algorithm):
@@ -105,18 +107,37 @@ def fill_bits(fill, dtype):
     return int.from_bytes(bytes(raw.tolist()), 'little')
 
 
-def check_launch(lat, out_h, out_w, wraps, full_width):
-    """Raise ValueError unless the kernel can launch this geometry: the
-    staged lattice row fits in shared memory, each output side is in
-    [1, 2^24] and a wrapping source has its period."""
+def chunking(lib, gw, spacing, out_h, out_w):
+    """``(chunk, blocks)``: the output columns a block of the kernel takes
+    and the blocks of the warp, as ``lib`` (a library that includes
+    ``csrc/warp_kernel.cuh``) launches them (``chunk_columns``,
+    ``blocks``): a block an output row where the lattice row fits in
+    shared memory, else a chunk of one."""
+    chunk, blocks = ctypes.c_longlong(), ctypes.c_longlong()
+    fn = lib.warp_chunking
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = None
+    fn(gw, spacing.bit_length() - 1, out_h, out_w, ctypes.byref(chunk),
+       ctypes.byref(blocks))
+    return chunk.value, blocks.value
+
+
+def check_launch(lib, lat, spacing, out_h, out_w, wraps, full_width):
+    """Raise ValueError unless the kernel in ``lib`` can launch this
+    geometry: every side of the output and the lattice in [1, 2^31 - 1]
+    (the lattice's at least 2), at most 2^31 - 1 blocks (``chunking``),
+    and a wrapping source with its period."""
     gh, gw = lat[0].shape
-    if gw > MAX_STAGED_COLUMNS:
-        raise ValueError(f'device warp: a lattice row of {gw} columns does '
-                         f'not fit in shared memory (at most '
-                         f'{MAX_STAGED_COLUMNS})')
-    if not (1 <= out_h <= MAX_OUTPUT_SIDE and 1 <= out_w <= MAX_OUTPUT_SIDE):
+    if not (1 <= out_h <= MAX_SIDE and 1 <= out_w <= MAX_SIDE):
         raise ValueError(f'device warp: cannot launch an output of '
                          f'{out_h} x {out_w}')
+    if gh > MAX_SIDE or gw > MAX_SIDE:
+        raise ValueError(f'device warp: cannot launch a lattice of '
+                         f'{gh} x {gw}')
+    if chunking(lib, gw, spacing, out_h, out_w)[1] > MAX_SIDE:
+        raise ValueError(f'device warp: an output of {out_h} x {out_w} '
+                         f'takes more than {MAX_SIDE} blocks')
     if wraps and (full_width is None or full_width < 1):
         raise ValueError('device warp: a wrapping source needs full_width')
 
@@ -147,13 +168,13 @@ def resample(data, valid, lat, spacing, out_h, out_w, algorithm, fill,
     if device.type != 'cuda':
         raise ValueError(f'device warp: the kernel takes CUDA tensors, not '
                          f'{device}')
-    check_launch(lat, out_h, out_w, wraps, full_width)
+    lib = _bind(build('warp_kernel').lib)
+    check_launch(lib, lat, spacing, out_h, out_w, wraps, full_width)
     out_dtype = data.dtype if algorithm == 'nearest' else torch.float32
     out = torch.empty((out_h, out_w), dtype=out_dtype, device=device)
     amb = torch.empty((out_h, out_w), dtype=torch.bool, device=device)
     args = launch_args(data, valid, lat, spacing, out_h, out_w, algorithm,
                        fill, wraps, full_width, out, amb)
-    lib = _bind(build('warp_kernel').lib)
     # the launch goes to the current device and the stream handle is that
     # device's: make the tensors' device current
     with torch.cuda.device(device):

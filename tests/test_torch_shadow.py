@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import shadow_suspects
 from proteus_tpu.models.dswx.shadow import \
     compute_opera_shadow_layer_exact as jax_shadow
 from proteus_tpu_torch.models.dswx import shadow as tshadow
@@ -171,3 +172,60 @@ def test_shadow_matches_host_in_a_fresh_process(tmp_path):
     assert got == {'threads': 1, 'jax': False, 'dem': 0,
                    'shadow_on_device_dem': 0, 'shadow_on_host_dem': 0,
                    'crop': 0}
+
+
+def test_square_roots_are_within_two_ulp():
+    """``shadow._sqrt`` (the comparison spaces' square root, in place of
+    ``torch.sqrt``) against NumPy's float64 square root: within 2 ULP of
+    the float32 result on normal and subnormal values, 0, -0, inf and NaN
+    passed through."""
+    rng = np.random.default_rng(11)
+    x = np.concatenate([
+        rng.uniform(1.0, 2.0, 100_000), np.exp2(rng.uniform(-140, 127, 10_000)),
+        [0.0, -0.0, np.inf, np.nan, 1.0, 4.0, 2.0 ** -149]]).astype(np.float32)
+    got = tshadow._sqrt(torch.from_numpy(x)).numpy()
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    assert np.array_equal(np.signbit(got[ok]), np.signbit(want[ok]))
+    ulps = np.abs(got[ok].view(np.int32).astype(np.int64)
+                  - want[ok].view(np.int32).astype(np.int64))
+    assert ulps.max() <= 2
+
+
+def test_comparison_spaces_take_no_torch_sqrt(monkeypatch):
+    """Neither the shadow's nor the hillshade's comparison space calls
+    ``torch.sqrt``, whose CPU kernel computes one intra-op thread's share
+    of its first call to about 11 bits in some processes
+    (``tests/shadow_suspects.py``)."""
+    def no_sqrt(*args, **kw):
+        raise AssertionError('torch.sqrt called')
+    dem = torch.from_numpy(_terrain(64, 12))
+    monkeypatch.setattr(torch, 'sqrt', no_sqrt)
+    got = tshadow.compute_opera_shadow_layer_exact(dem, *ANGLES)
+    hillshade = tshadow.compute_hillshade_exact(dem, SUN_AZ, SUN_ELEV)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(
+        got.numpy(), tshadow._host_shadow_exact(dem.numpy(), *ANGLES))
+    np.testing.assert_array_equal(
+        hillshade.numpy(), tshadow._host_hillshade_gdal(
+            dem.numpy(), SUN_AZ, SUN_ELEV, 30.0, -30.0))
+
+
+@pytest.mark.parametrize('suspect', shadow_suspects.SUSPECTS)
+def test_shadow_suspects_in_a_fresh_process(tmp_path, suspect):
+    """Each suspect of the CPU shadow mismatch (``tests/shadow_suspects.
+    py``) in a fresh process with the default threads on the synthetic
+    1001^2 DEM (rows of 1,101 px, off the vector width): the shadow
+    equals the host shadow, and the comparison space's first square root
+    is within 2 ULP wherever ``torch.sqrt`` lands."""
+    from proteus_tpu_torch.testing import synthetic
+    dem = synthetic.make_dem(str(tmp_path), size=1001)
+    got = shadow_suspects.run(dem, 1001, suspect)
+    assert got['width'] == 1101
+    assert [r['differ'] for r in got['rows']] == [0] * len(got['rows'])
+    if suspect in ('ftz', 'codec-ftz'):
+        assert got['flags']['calling_thread'] and got['flags']['intra_op']
+    if suspect == 'first-sqrt':
+        assert got['rows'][0]['case'] == 'shadow._sqrt'
+        assert got['rows'][0]['max_rel'] < 2.5 * 2.0 ** -23

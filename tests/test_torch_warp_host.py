@@ -6,14 +6,20 @@ are the IEEE operations, ``-ffp-contract=off``), bound and fed by
 ``geo/warp.py::device_resample_plain`` bit for bit but NaN payloads in
 every template instantiation: nearest with elements of 1, 2, 4 and 8
 bytes, bilinear and cubic in the fast, unmasked-wrap and masked modes,
-each with 32- and 64-bit indices (the 64-bit instantiations through an
-entry of their own: the dispatch takes them only at 2^31 elements); then
-sources of +-0, subnormals, +-inf, NaN and +-3e38, and lattices whose
-differences are about 1e-30 and 1e31, which take the TwoProduct's Dekker
-path. ``two_prod`` itself is held
-against ``core/eft.py::two_prod`` (Dekker's) on operands aimed at its
-guard's edges. The compiled code and the plain twin run in a process of
-their own that has not imported jax, with the thread's flush-to-zero and
+each with 32- and 64-bit indices and in each layout of a block: an
+output row, and a column chunk with the float32 row and column numbers
+(the 64-bit indices and the chunks through an entry of their own: the
+dispatch takes them only at 2^31 elements, for lattice rows wider than a
+block's shared memory and past 2^24); then sources of +-0, subnormals,
++-inf, NaN and +-3e38, lattices whose differences are about 1e-30 and
+1e31, which take the TwoProduct's Dekker path, and lattice rows wider
+than a block's shared memory, staged in column chunks. ``two_prod``
+itself is held against ``core/eft.py::two_prod`` (Dekker's) on operands
+aimed at its guard's edges, the kernel's cells and column lerps against
+the twin's float32 column numbers around 2^24, 2^25 and 2^30, and its
+chunking, through ``warp_kernel.chunking``, against the widths it must
+take. The compiled code and the plain twin run in a process of their own
+that has not imported jax, with the thread's flush-to-zero and
 denormals-are-zero bits checked clear: subnormals are among the cases.
 """
 
@@ -43,25 +49,49 @@ MODES = {'fast': (False, False), 'unmasked-wrap': (True, False),
          'masked': (False, True), 'masked-wrap': (True, True)}
 
 
+# (out_h, out_w, spacing): the small grid, and lattice rows of 10,982
+# columns (spacing 1) and of 7,502 (spacing 8, 60,000 px wide), past a
+# block's 7,264 staged columns: two and three column chunks a row, the
+# second's boundaries inside a lattice cell
+GEOMETRIES = {'small': (OUT_H, OUT_W, SPACING), 'wide1': (3, 10980, 1),
+              'wide8': (3, 60000, 8)}
+
+
+# warp_kernel.cuh's Layouts, which warp_launch_as forces: an output row
+# (the main paths), a column chunk
+LAYOUTS = {'rows': 0, 'chunks': 1}
+
+
 def _case(algorithm, dtype, mode, index64, lattice='smooth',
-          source='normal'):
+          source='normal', layout=None, geometry='small'):
     wraps, masked = MODES[mode]
     name = (f'{algorithm}-{np.dtype(dtype).name}-{mode}-'
             f'int{64 if index64 else 32}')
+    if layout:
+        name += f'-{layout}'
     if lattice != 'smooth' or source != 'normal':
         name += f'-{lattice}-lattice-{source}-source'
-    return name, dict(algorithm=algorithm, dtype=np.dtype(dtype).name,
-                      wraps=wraps, masked=masked, index64=index64,
-                      lattice=lattice, source=source)
+    spec = dict(algorithm=algorithm, dtype=np.dtype(dtype).name,
+                wraps=wraps, masked=masked, index64=index64, lattice=lattice,
+                source=source)
+    # (the spec seeds the case's data: keys only where not the default)
+    if layout:
+        spec['layout'] = layout
+    if geometry != 'small':
+        name += '-{}x{}-spacing-{}'.format(*GEOMETRIES[geometry])
+        spec['geometry'] = geometry
+    return name, spec
 
 
 CASES = dict(
-    # every instantiation: warp_nearest_kernel<T, I>, warp_kernel_kernel<
-    # taps, mode, I>
-    [_case('nearest', d, m, i64) for d in NEAREST_DTYPES
-     for m in ('fast', 'masked-wrap') for i64 in (False, True)]
-    + [_case(a, np.float32, m, i64) for a in ('bilinear', 'cubic')
-       for m in MODES for i64 in (False, True)]
+    # every instantiation: warp_nearest_kernel<T, I, layout>,
+    # warp_kernel_kernel<taps, mode, I, layout>
+    [_case('nearest', d, m, i64, layout=k) for d in NEAREST_DTYPES
+     for m in ('fast', 'masked-wrap') for i64 in (False, True)
+     for k in (None, 'chunks')]
+    + [_case(a, np.float32, m, i64, layout=k)
+       for a in ('bilinear', 'cubic') for m in MODES for i64 in (False, True)
+       for k in (None, 'chunks')]
     # the TwoProduct's edges in the source values and the lattice
     + [_case(a, np.float32, m, False, source='edge')
        for a in ('bilinear', 'cubic') for m in ('fast', 'masked')]
@@ -75,12 +105,21 @@ CASES = dict(
                          ('cubic', 'unmasked-wrap', True),
                          ('bilinear', 'masked-wrap', False))]
     + [_case('cubic', np.float32, m, False, lattice='far', source='edge')
-       for m in ('unmasked-wrap', 'masked-wrap')])
+       for m in ('unmasked-wrap', 'masked-wrap')]
+    # lattice rows staged in column chunks
+    + [_case(a, d, m, False, geometry=g) for g in ('wide1', 'wide8')
+       for a, d, m in (('nearest', np.uint8, 'fast'),
+                       ('nearest', np.int16, 'masked'),
+                       ('cubic', np.float32, 'fast'),
+                       ('cubic', np.float32, 'masked'),
+                       ('cubic', np.float32, 'masked-wrap'))])
 
 # arguments warp_launch refuses, with either index width: changes to a
 # 46,400^2 uint8 nearest warp
-REFUSED = (('output side 2^24 + 1', {'out_w': 2 ** 24 + 1}),
-           ('a lattice row of 7,265 columns', {'gw': 7265}),
+REFUSED = (('output side 2^31', {'out_w': 2 ** 31}),
+           ('a lattice row of 2^31 columns', {'gw': 2 ** 31}),
+           ('2 x (2^31 - 1) blocks',
+            {'out_h': 2 ** 31 - 1, 'out_w': 8000, 'gw': 10 ** 5, 'shift': 0}),
            ('a wrap without its period', {'wraps': 1}),
            ('3-byte elements', {'elem_size': 3}),
            ('cubic on 1-byte elements', {'algorithm': 2}),
@@ -93,6 +132,27 @@ INDEX_SHAPES = [
     ((1, 2 ** 31, 2, 2, 1, 1), True),
     ((2, 2, 2, 2, 46341, 46341), True),
     ((2, 2, 2, 2, 46340, 46340), False)]
+# (gw, spacing, out_h, out_w) -> (output columns a block, blocks): whole
+# rows, the widest whole row, chunks of W = 7,261 spacing + 1 columns
+# (phase 3e's too), and past 2^24, where the chunks keep a slack of 128
+CHUNKINGS = [((472, 8, 3660, 3660), (3660, 3660)),
+             ((345, 32, 10980, 10980), (10980, 10980)),
+             ((7264, 1, 3, 7262), (7262, 3)),
+             ((7265, 1, 3, 7263), (7262, 6)),
+             ((10982, 1, 256, 10980), (7262, 512)),
+             ((7502, 8, 3, 60000), (58089, 6)),
+             ((7502, 8, 256, 60000), (58089, 512)),
+             ((2 ** 21 + 515, 8, 2, 2 ** 24 + 4099), (57961, 580)),
+             ((2 ** 24 + 4101, 1, 2, 2 ** 24 + 4099), (7134, 4706)),
+             ((3, 8, 2 ** 24 + 5, 7), (7, 2 ** 24 + 5)),
+             ((10 ** 5, 1, 2 ** 31 - 1, 8000), (7134, 2 ** 32 - 2)),
+             ((2 ** 20, 2 ** 12, 5, 2 ** 31 - 1), (29740929, 365))]
+# cells and column lerps: windows of k around 2^24, 2^25 and 2^30, at
+# spacings 1, 8 and 2^12, on a short lattice (every k clamped) and on one
+# that holds every k's cell
+CELL_WINDOWS = [2 ** 24, 2 ** 25, 2 ** 30]
+CELL_SPACINGS = [1, 8, 2 ** 12]
+CELL_HALF_WIDTH = 2048
 
 # warp_kernel.cuh's Operands: what two_prod's call site knows
 OPERANDS = {'bounded': 0, 'any-a': 1, 'any-b': 2, 'unknown': 3}
@@ -115,22 +175,26 @@ def compile_host_library(out_dir):
 
 # ---- inputs ---------------------------------------------------------------
 
-def _lattice(rng, kind, shift):
+def _lattice(rng, kind, shift, geometry='small'):
     """The double-float32 lattice (u_hi, u_lo, v_hi, v_lo) of window-
-    relative source coordinates. 'smooth': nodes of the top half on exact
-    multiples of 1/4 px (outputs on integer and half-integer coordinates:
-    the ambiguity bands), the rest smooth with noise. 'tiny': u's hi the
+    relative source coordinates over one of GEOMETRIES. 'smooth': nodes of
+    the top half on exact multiples of 1/4 px (outputs on integer and
+    half-integer coordinates: the ambiguity bands; a wide grid's columns
+    squeezed onto the window by a power of two), the rest smooth with
+    noise. 'tiny': u's hi the
     same at every node and v's hi a multiple of 1/2 px a row, their lo
     parts about 1e-30 apart, so a lerp's difference is about 1e-30.
     'far': u past 2^24 (no bound on the taps' weights). 'huge': u about
     1e31 apart (beyond the FMA's operand bound), v smooth.
     ``shift`` moves u west (negative columns for a wrapping source)."""
     from proteus_tpu_torch.geo.warp import _dd_split
-    gh = len(range(0, OUT_H + 2 * SPACING, SPACING))
-    gw = len(range(0, OUT_W + 2 * SPACING, SPACING))
-    gi = np.arange(gh, dtype=np.float64)[:, None] * SPACING
-    gj = np.arange(gw, dtype=np.float64)[None, :] * SPACING
-    exact = gi < OUT_H / 2
+    out_h, out_w, spacing = GEOMETRIES[geometry]
+    gh = len(range(0, out_h + 2 * spacing, spacing))
+    gw = len(range(0, out_w + 2 * spacing, spacing))
+    gi = np.arange(gh, dtype=np.float64)[:, None] * spacing
+    gj = np.arange(gw, dtype=np.float64)[None, :] * spacing \
+        * 2.0 ** np.floor(np.log2(OUT_W / out_w))
+    exact = gi < out_h / 2
     u = np.where(exact, 0.75 * gj + 0.125 * gi + 1.0,
                  0.83 * gj + 0.013 * gi + rng.uniform(-0.4, 0.4, (gh, gw))
                  + 1e-4 * gj ** 2)
@@ -196,22 +260,32 @@ def run_case(lib, spec):
     rng = np.random.default_rng(zlib.crc32(json.dumps(spec).encode()))
     wraps, masked = spec['wraps'], spec['masked']
     dtype = np.dtype(spec['dtype'])
+    geometry = spec.get('geometry', 'small')
+    out_h, out_w, spacing = GEOMETRIES[geometry]
     lat = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in
-                _lattice(rng, spec['lattice'], -W / 2 if wraps else 0.0))
+                _lattice(rng, spec['lattice'], -W / 2 if wraps else 0.0,
+                         geometry))
     data = torch.from_numpy(_source(rng, dtype, spec['source']))
     valid = torch.from_numpy(rng.random((H, W)) > 0.15) if masked else None
     fill = float('nan') if dtype.kind == 'f' else 7
-    args = (data, valid, lat, SPACING, OUT_H, OUT_W, spec['algorithm'], fill,
+    args = (data, valid, lat, spacing, out_h, out_w, spec['algorithm'], fill,
             wraps, W if wraps else None)
     warp_kernel.check(*args[:4], spec['algorithm'])
+    warp_kernel.check_launch(lib, *args[2:6], wraps, args[9])
+    if geometry != 'small':
+        assert lat[0].shape[1] > warp_kernel.MAX_STAGED_COLUMNS
     want_out, want_amb = device_resample_plain(*args)
     out = torch.empty_like(want_out)
     amb = torch.empty_like(want_amb)
     launch = warp_kernel.launch_args(*args, out, amb)
     assert not lib.warp_index64(*launch[6:10], *launch[11:13],
                                 *launch[16:18]), 'the warp took 64-bit indices'
-    entry = lib.warp_launch_int64 if spec['index64'] else lib.warp_launch
-    err = entry(*launch, None)
+    if spec['index64'] or 'layout' in spec:
+        err = lib.warp_launch_as(int(spec['index64']),
+                                 LAYOUTS.get(spec.get('layout'), -1),
+                                 *launch, None)
+    else:
+        err = lib.warp_launch(*launch, None)
     assert err == 0, f'warp_launch returned {err}'
     assert _bits_equal(out.numpy(), want_out.numpy()), \
         f'out differs in {int((out != want_out).sum())} px'
@@ -294,6 +368,77 @@ def _elementwise_same(x, y):
                                                          & np.isnan(y))
 
 
+# ---- cells and column lerps past 2^24 ---------------------------------------
+
+def _twin_column_numbers(center):
+    """The plain twin's float32 column numbers torch.arange(n,
+    dtype=torch.float32) of the window of k around ``center``: sliced from
+    the whole arange up to 2^25 + 2^11 (134 MB), past it the float32
+    rounding to nearest of k, which those windows show to be the same."""
+    k = np.arange(center - CELL_HALF_WIDTH, center + CELL_HALF_WIDTH)
+    rounded = torch.from_numpy(k.astype(np.float64)).to(torch.float32)
+    if center <= 2 ** 25:
+        ranged = torch.arange(int(k[-1]) + 1, dtype=torch.float32)[k[0]:]
+        assert torch.equal(ranged, rounded)
+        return k, ranged
+    return k, rounded
+
+
+def run_cells(lib, center, spacing, clamps, floats):
+    """The kernel's cells and column lerps (warp_columns) against the
+    plain twin's, bit for bit but NaN payloads, on the window of k around
+    ``center``: the twin's floor(f), clamped to the lattice's last cell,
+    f - float32(k0), and g0 + (g1 - g0) w by ``_dd_lerp``. The lerps' end
+    points are values of any exponent, differences near 2^100, and, where
+    a clamped weight passes 2^28, differences that bring the product
+    within 2^-11 of the float32 overflow, where Dekker's partial products
+    overflow and the FMA's error term does not. Returns what differs and
+    the share of weights past 2^24."""
+    from proteus_tpu_torch.geo.warp import _dd_lerp, f32
+    k, f = _twin_column_numbers(center)
+    if not floats:
+        k, f = k[k < 2 ** 24], f[torch.from_numpy(k < 2 ** 24)]
+    n = 5 if clamps else (center + CELL_HALF_WIDTH) // spacing + 2
+    # the plain twin: device_resample_plain's fj, j0 and wj
+    fj = f * f32(1.0 / spacing, f)
+    j0 = torch.floor(fj).to(torch.int64).clamp(0, n - 2)
+    wj = fj - j0.to(torch.float32)
+    w = wj.numpy()
+    rng = np.random.default_rng(center + spacing + 2 * clamps + floats)
+    scale = np.float32(2.0) ** rng.integers(-100, 101, (len(k), 2))
+    ends = (rng.normal(0, 1, (len(k), 2)) * scale).astype(np.float32)
+    big = rng.random(len(k)) < 0.3
+    ends[big, 1] = (rng.uniform(1.0, 2.0, int(big.sum()))
+                    * 2.0 ** 99).astype(np.float32)
+    edge = (rng.random(len(k)) < 0.4) & (w >= 2 ** 28)
+    ends[edge, 0] = 0.0
+    ends[edge, 1] = (np.finfo(np.float32).max / w[edge].astype(np.float64)
+                     * (1 - rng.uniform(0, 2.0 ** -11, int(edge.sum())))
+                     ).astype(np.float32)
+    # (hi, lo) pairs
+    lo = ends * np.float32(2.0 ** -30) \
+        * rng.uniform(-1, 1, (len(k), 2)).astype(np.float32)
+    g0 = np.ascontiguousarray(np.stack([ends[:, 0], lo[:, 0]], 1))
+    g1 = np.ascontiguousarray(np.stack([ends[:, 1], lo[:, 1]], 1))
+    k32 = k.astype(np.int32)
+    k0 = np.empty(len(k), np.int32)
+    weight, hi, lo = (np.empty(len(k), np.float32) for _ in range(3))
+    ptr = (lambda a: a.ctypes.data_as(ctypes.c_void_p))
+    lib.warp_columns(ptr(k32), len(k), spacing.bit_length() - 1, n,
+                     int(floats), ptr(g0), ptr(g1), ptr(k0), ptr(weight),
+                     ptr(hi), ptr(lo))
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (g0[:, 0], g0[:, 1], g1[:, 0], g1[:, 1])]
+    want_hi, want_lo = (x.numpy() for x in
+                        _dd_lerp((t[0], t[1]), (t[2], t[3]), wj))
+    bad = {'k0': int((k0 != j0.numpy()).sum()),
+           'weight': int((~_elementwise_same(weight, w)).sum()),
+           'lerp': int((~(_elementwise_same(hi, want_hi)
+                          & _elementwise_same(lo, want_lo))).sum())}
+    return {'differ': bad, 'past_2_24': float(np.mean(w >= 2 ** 24)),
+            'near_overflow': int(edge.sum())}
+
+
 # ---- the worker: a fresh process without jax -------------------------------
 
 def worker(lib_path, out_path):
@@ -301,7 +446,11 @@ def worker(lib_path, out_path):
     from proteus_tpu_torch.ops import warp_kernel
     lib = warp_kernel._bind(ctypes.CDLL(lib_path))
     lib.warp_mxcsr.restype = ctypes.c_uint
-    lib.warp_launch_int64.argtypes = lib.warp_launch.argtypes
+    lib.warp_launch_as.argtypes = [ctypes.c_int] * 2 \
+        + lib.warp_launch.argtypes
+    lib.warp_columns.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int] + [ctypes.c_void_p] * 6
     lib.warp_index64.argtypes = [ctypes.c_longlong] * 6 + [
         ctypes.c_int, ctypes.c_longlong]
     lib.warp_two_prod.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -329,11 +478,21 @@ def worker(lib_path, out_path):
                   a['gw'], a['shift'], a['out_h'], a['out_w'], a['algorithm'],
                   a['elem_size'], 0, a['wraps'], a['full_width'], one, one,
                   None)
-            for entry in (lib.warp_launch, lib.warp_launch_int64)]
+            for entry in (lib.warp_launch,
+                          lambda *args: lib.warp_launch_as(
+                              1, LAYOUTS['chunks'], *args))]
     results['index64'] = {
         str(shape): [lib.warp_index64(*shape, wraps, width)
                      for wraps, width in ((0, 0), (1, 2 ** 31), (0, 2 ** 31))]
         for shape, _ in INDEX_SHAPES}
+    results['chunking'] = {str(sizes): warp_kernel.chunking(lib, *sizes)
+                           for sizes, _ in CHUNKINGS}
+    results['cells'] = {
+        f'{center}-{spacing}-{clamps}-{floats}': run_cells(
+            lib, center, spacing, clamps, floats)
+        for center in CELL_WINDOWS for spacing in CELL_SPACINGS
+        for clamps in (True, False) for floats in (True, False)
+        if floats or center == 2 ** 24}
     results['mxcsr_after'] = lib.warp_mxcsr()
     with open(out_path, 'w') as fh:
         json.dump(results, fh)
@@ -380,6 +539,44 @@ def test_fresh_process_keeps_subnormals(host):
 def test_launch_refuses_what_no_kernel_takes(host):
     got = host['refusals']
     assert got == {what: [1, 1] for what, _ in REFUSED}
+
+
+@pytest.mark.parametrize('gw,spacing,out_h,out_w',
+                         [sizes for sizes, _ in CHUNKINGS])
+def test_chunks_are_the_wrappers(host, gw, spacing, out_h, out_w):
+    """The wrapper's chunking (``warp_kernel.chunking``, which reads the
+    C entry's ``chunk_columns`` and ``blocks``) takes the widths the
+    staging model in tests/test_torch_warp_kernel.py checks."""
+    from proteus_tpu_torch.ops import warp_kernel
+    sizes = (gw, spacing, out_h, out_w)
+    chunk, blocks = dict(CHUNKINGS)[sizes]
+    assert host['chunking'][str(sizes)] == [chunk, blocks]
+    assert blocks == out_h * -(-out_w // chunk)
+    assert chunk == out_w or gw > warp_kernel.MAX_STAGED_COLUMNS
+
+
+@pytest.mark.parametrize('center', CELL_WINDOWS)
+@pytest.mark.parametrize('spacing', CELL_SPACINGS)
+@pytest.mark.parametrize('clamps', (True, False), ids=('short', 'long'))
+def test_cells_are_the_twins_float32_numbers(host, center, spacing, clamps):
+    """k0, the weight and the column lerp of every k of the window, from
+    the float32 numbers (the chunks) and, below 2^24, from the shift (an
+    output row), as the twin computes them from torch.arange(n,
+    dtype=torch.float32) / spacing."""
+    for floats in (True, False):
+        got = host['cells'].get(f'{center}-{spacing}-{clamps}-{floats}')
+        if got is None:
+            assert not floats and center > 2 ** 24
+            continue
+        assert got['differ'] == {'k0': 0, 'weight': 0, 'lerp': 0}, got
+    # a short lattice clamps every weight to about k / spacing, which
+    # passes 2^24 (Dekker's split) in some windows
+    got = host['cells'][f'{center}-{spacing}-{clamps}-True']
+    assert (got['past_2_24'] > 0) == (
+        clamps and center / spacing > 2 ** 24 - CELL_HALF_WIDTH)
+    # and past 2^28, where products come within 2^-11 of the overflow
+    assert (got['near_overflow'] > 0) == (clamps
+                                          and center / spacing > 2 ** 28)
 
 
 @pytest.mark.parametrize('shape,wide', INDEX_SHAPES)

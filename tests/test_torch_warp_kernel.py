@@ -4,17 +4,21 @@ CUDA kernel's plain twin) against the reference's ``_device_resample``
 tolerance 0 (bit for bit but NaN payloads) in every template case of
 ``ops/csrc/warp_kernel.cu``: nearest with elements of 1, 2 and 4 bytes,
 with and without a wrap and a validity mask; bilinear and cubic in the
-fast, unmasked-wrap and masked accumulation modes. The lattices put pixels
-on integer and half-integer coordinates, so ``amb`` is populated, and the
-float sources hold NaN and inf under no declared nodata (the vmin / vmax
-trackers). Then the dispatch of ``device_resample`` (CPU tensors take the
-plain twin and launch nothing; any other device reaches the kernel's
-wrapper, never the twin), the wrapper's checks, and a numpy model of the
-kernel's row staging at the main path's sizes and spacings.
+fast, unmasked-wrap and masked accumulation modes; and three on a grid
+whose lattice rows pass a block's 7,264 staged columns. The lattices put
+pixels on integer and half-integer coordinates, so ``amb`` is populated,
+and the float sources hold NaN and inf under no declared nodata (the
+vmin / vmax trackers). Then the dispatch of ``device_resample`` (CPU
+tensors take the plain twin and launch nothing; any other device reaches
+the kernel's wrapper, never the twin), the wrapper's checks and launch
+limits, and a numpy model of the kernel's blocks: whole rows at the main
+path's sizes and spacings, column chunks of wider lattice rows, and sides
+past 2^24.
 """
 
 import os
 import re
+import subprocess
 import zlib
 
 import jax.numpy as jnp
@@ -37,17 +41,19 @@ OUT_H, OUT_W = 41, 53
 SPACING = 8
 
 
-def _lattice(rng, shift):
+def _lattice(rng, shift, out_h=OUT_H, out_w=OUT_W, spacing=SPACING):
     """A double-float32 lattice of window-relative source coordinates.
     Nodes of the top half sit on exact multiples of 1/4 px (outputs on
-    integer and half-integer coordinates: the ambiguity bands), the rest
+    integer and half-integer coordinates: the ambiguity bands; a wide
+    grid's columns squeezed onto the window by a power of two), the rest
     are smooth with noise; ``shift`` moves u west (negative columns for a
     wrapping source)."""
-    gh = len(range(0, OUT_H + 2 * SPACING, SPACING))
-    gw = len(range(0, OUT_W + 2 * SPACING, SPACING))
-    gi = np.arange(gh, dtype=np.float64)[:, None] * SPACING
-    gj = np.arange(gw, dtype=np.float64)[None, :] * SPACING
-    exact = gi < OUT_H / 2
+    gh = len(range(0, out_h + 2 * spacing, spacing))
+    gw = len(range(0, out_w + 2 * spacing, spacing))
+    gi = np.arange(gh, dtype=np.float64)[:, None] * spacing
+    gj = np.arange(gw, dtype=np.float64)[None, :] * spacing \
+        * 2.0 ** np.floor(np.log2(OUT_W / out_w))
+    exact = gi < out_h / 2
     u = np.where(exact, 0.75 * gj + 0.125 * gi + 1.0,
                  0.83 * gj + 0.013 * gi + rng.uniform(-0.4, 0.4, (gh, gw))
                  + 1e-4 * gj ** 2)
@@ -78,20 +84,32 @@ KERNELS = [(algorithm, np.float32, wraps, masked)
                                  (False, True), (True, True))]
 MODES = {(False, False): 'fast', (True, False): 'unmasked-wrap',
          (False, True): 'masked', (True, True): 'masked-wrap'}
+# a grid whose lattice rows (8,002 columns) pass a block's 7,264 staged
+# columns, which the reference takes too
+WIDE = (3, 8000, 1)
+TWIN_CASES = [c + ((OUT_H, OUT_W, SPACING),) for c in NEAREST + KERNELS] + [
+    ('nearest', np.uint8, False, False, WIDE),
+    ('cubic', np.float32, False, True, WIDE),
+    ('bilinear', np.float32, True, False, WIDE)]
 
 
 @pytest.mark.parametrize(
-    'algorithm,dtype,wraps,masked', NEAREST + KERNELS,
+    'algorithm,dtype,wraps,masked,geometry', TWIN_CASES,
     ids=[f'{a}-{np.dtype(d).name}-{MODES[w, m]}'
-         for a, d, w, m in NEAREST + KERNELS])
-def test_plain_twin_matches_the_reference(algorithm, dtype, wraps, masked):
-    rng = np.random.default_rng(zlib.crc32(
-        f'{algorithm} {np.dtype(dtype).name} {wraps} {masked}'.encode()))
-    lat = _lattice(rng, -W / 2 if wraps else 0.0)
+         + ('' if g == (OUT_H, OUT_W, SPACING) else '-{}x{}-spacing-{}'
+            .format(*g)) for a, d, w, m, g in TWIN_CASES])
+def test_plain_twin_matches_the_reference(algorithm, dtype, wraps, masked,
+                                          geometry):
+    out_h, out_w, spacing = geometry
+    key = f'{algorithm} {np.dtype(dtype).name} {wraps} {masked}'
+    if geometry != (OUT_H, OUT_W, SPACING):
+        key += ' {} {} {}'.format(*geometry)
+    rng = np.random.default_rng(zlib.crc32(key.encode()))
+    lat = _lattice(rng, -W / 2 if wraps else 0.0, *geometry)
     data = _source(rng, dtype, holes=np.dtype(dtype).kind == 'f')
     valid = rng.random((H, W)) > 0.15 if masked else None
     fill = float('nan') if np.dtype(dtype).kind == 'f' else 7
-    args = (SPACING, OUT_H, OUT_W, algorithm, fill, wraps, W)
+    args = (spacing, out_h, out_w, algorithm, fill, wraps, W)
     want_out, want_amb = _device_resample(
         jnp.asarray(data), None if valid is None else jnp.asarray(valid),
         tuple(jnp.asarray(a) for a in lat), *args)
@@ -101,7 +119,10 @@ def test_plain_twin_matches_the_reference(algorithm, dtype, wraps, masked):
         tuple(torch.from_numpy(a) for a in lat), *args)
     want_out, want_amb = np.asarray(want_out), np.asarray(want_amb)
     got_out, got_amb = got_out.numpy(), got_amb.numpy()
-    assert got_out.dtype == want_out.dtype and got_out.shape == (OUT_H, OUT_W)
+    assert got_out.dtype == want_out.dtype and got_out.shape == (out_h,
+                                                                  out_w)
+    if geometry == WIDE:
+        assert lat[0].shape[1] > warp_kernel.MAX_STAGED_COLUMNS
     # bit for bit (signed zeros included) but NaN payloads: XLA and PyTorch
     # on the CPU order the operands of an add differently, and x86 keeps
     # the first NaN operand's sign
@@ -216,29 +237,63 @@ def test_the_wrappers_checks_raise(name):
     assert warp_kernel.LAUNCHES == before
 
 
-LIMITS = {  # lattice columns, out_h, out_w, wraps, full_width -> launches
-    'the widest staged row, 7,264 columns': (7264, 41, 53, False, None, True),
-    'a row of 7,265 columns': (7265, 41, 53, False, None, False),
-    'an output side of 2^24': (8, 2 ** 24, 1, False, None, True),
-    'an output side of 2^24 + 1': (8, 1, 2 ** 24 + 1, False, None, False),
-    'an empty output': (8, 0, 53, False, None, False),
-    'a wrap without its period': (8, 41, 53, True, None, False),
-    'a wrap with its period': (8, 41, 53, True, 45, True),
+LIMITS = {  # lattice columns, spacing, out_h, out_w, wraps, full_width
+    #          -> launches
+    'the widest staged row, 7,264 columns':
+        (7264, 8, 41, 53, False, None, True),
+    'a row of 7,265 columns': (7265, 8, 41, 53, False, None, True),
+    'a row of 10,982 columns at spacing 1':
+        (10982, 1, 256, 10980, False, None, True),
+    'a row of 2^31 - 1 columns': (2 ** 31 - 1, 1, 3, 8000, False, None, True),
+    'a row of 2^31 columns': (2 ** 31, 1, 3, 8000, False, None, False),
+    'an output side of 2^24': (8, 8, 2 ** 24, 1, False, None, True),
+    'an output side of 2^24 + 1': (8, 8, 1, 2 ** 24 + 1, False, None, True),
+    'an output side of 2^31 - 1':
+        (8, 8, 2 ** 31 - 1, 1, False, None, True),
+    'an output side of 2^31': (8, 8, 1, 2 ** 31, False, None, False),
+    'more than 2^31 - 1 blocks':
+        (10 ** 5, 1, 2 ** 31 - 1, 8000, False, None, False),
+    'an empty output': (8, 8, 0, 53, False, None, False),
+    'a wrap without its period': (8, 8, 41, 53, True, None, False),
+    'a wrap with its period': (8, 8, 41, 53, True, 45, True),
 }
 
 
+@pytest.fixture(scope='module')
+def header_lib(tmp_path_factory):
+    """``csrc/warp_kernel.cuh`` alone, compiled with g++ behind the
+    ``cuda_runtime.h`` stand-in of tests/warp_host: the library exports the
+    C entry's chunking (``warp_chunking``), which ``warp_kernel.chunking``
+    and ``check_launch`` read."""
+    import ctypes
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lib = str(tmp_path_factory.mktemp('warp_header') / 'libwarp_header.so')
+    cmd = ['g++', '-std=c++17', '-O2', '-shared', '-fPIC', '-I',
+           os.path.join(repo, 'tests', 'warp_host'), '-I',
+           os.path.join(repo, 'proteus_tpu_torch', 'ops', 'csrc'), '-x',
+           'c++', '-', '-o', lib]
+    proc = subprocess.run(cmd, input='#include <cuda_runtime.h>\n'
+                          '#include "warp_kernel.cuh"\n', capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(lib)
+
+
 @pytest.mark.parametrize('name', LIMITS)
-def test_launch_limits(name):
-    """``check_launch`` takes a lattice row of at most 7,264 columns (the
-    staged row and its column differences, 32 B a column, in 227 KiB of
-    shared memory) and output sides in [1, 2^24], and raises beyond."""
-    gw, out_h, out_w, wraps, full_width, launches = LIMITS[name]
+def test_launch_limits(header_lib, name):
+    """``check_launch`` takes lattice rows of any width below 2^31 (a
+    block stages at most 7,264 columns, 32 B each in 227 KiB of shared
+    memory, and a wider row is cut into column chunks) and output sides in
+    [1, 2^31 - 1], past 2^24 too, in at most 2^31 - 1 blocks (the C
+    entry's count), and raises beyond."""
+    gw, spacing, out_h, out_w, wraps, full_width, launches = LIMITS[name]
     lat = tuple(torch.empty((2, gw), device='meta') for _ in range(4))
+    args = (lat, spacing, out_h, out_w, wraps, full_width)
     if launches:
-        warp_kernel.check_launch(lat, out_h, out_w, wraps, full_width)
+        warp_kernel.check_launch(header_lib, *args)
     else:
         with pytest.raises(ValueError, match='device warp'):
-            warp_kernel.check_launch(lat, out_h, out_w, wraps, full_width)
+            warp_kernel.check_launch(header_lib, *args)
 
 
 def test_launch_counts_lose_no_update_across_threads():
@@ -287,61 +342,114 @@ def _kernel_constant(name):
 THREADS = _kernel_constant('kThreads')
 
 
-def _staging(out_h, out_w, spacing):
-    """The kernel's launch restated: block i (one output row) stages
-    lattice rows i0, i0 + 1 at every column k that its threads t take
-    (k = t, t + THREADS, ... < gw) and the differences of neighbouring
-    staged columns, then thread t writes the row's pixels
-    j = t, t + THREADS, ... < out_w from the staged columns j0, j0 + 1.
-    i0 and j0 as the kernel computes them (i >> log2(spacing), clamped
-    to the lattice's last cell). Returns the lattice shape, the rows each
-    block reads, the columns it stages and the pixels it writes."""
+def _strided(count):
+    """The indices a block's threads t take, t, t + THREADS, ... < count,
+    in order."""
+    t = np.arange(THREADS)[:, None]
+    taken = t + THREADS * np.arange(-(-count // THREADS))[None, :]
+    return np.sort(taken[taken < count])
+
+
+def _cells(k, spacing, n, floats):
+    """The kernel's cells of rows or columns k on a lattice side of n:
+    k >> log2(spacing) (a block an output row), or floor(float32(k) /
+    spacing) (a column chunk), clamped to the last cell."""
+    if floats:
+        below = np.floor(k.astype(np.float32) * np.float32(1.0 / spacing))
+        return np.minimum(below.astype(np.int64), n - 2)
+    return np.minimum(k >> (spacing.bit_length() - 1), n - 2)
+
+
+def _twin_cells(numbers, spacing, n):
+    """The plain twin's cells and weights of its row or column numbers
+    (a slice of torch.arange(side, dtype=torch.float32))."""
+    f = numbers * warp.f32(1.0 / spacing, numbers)
+    k0 = torch.floor(f).to(torch.int64).clamp(0, n - 2)
+    return k0.numpy(), (f - k0.to(torch.float32)).numpy()
+
+
+# (out_h, out_w, spacing): the main path's grids at their spacings, a
+# ragged tile, lattice rows past a block's shared memory (spacing 1 on the
+# WorldCover grid, 60,000 px at spacing 8), and sides past 2^24
+STAGINGS = [(h, w, s) for s in (8, 16, 32)
+            for h, w in ((3660, 3660), (3760, 3760), (10980, 10980),
+                         (1001, 777))] + [
+    (3, 10980, 1), (256, 10980, 1), (3, 60000, 8),
+    (2, 2 ** 24 + 4099, 8), (2, 2 ** 24 + 4099, 1), (2 ** 24 + 4099, 2, 8)]
+
+
+@pytest.mark.parametrize('out_h,out_w,spacing', STAGINGS)
+def test_row_staging_covers_every_pixels_lattice_nodes(header_lib, out_h,
+                                                       out_w, spacing):
+    """The kernel's launch restated: out_h rows of chunks (``chunking``,
+    the C entry's), block b taking row b // chunks and chunk b % chunks, whose
+    columns j_a .. j_b its threads write (m = t, t + THREADS, ... <
+    width); it stages lattice rows i0, i0 + 1 at columns ka = k0(j_a) ..
+    kb = k0(j_b) + 1, the threads taking k = ka + t, ka + t + THREADS, ...
+    <= kb. Every pixel's k0 and k0 + 1 are staged by its own block, the
+    staged columns fit its shared memory, every pixel is written once, and
+    i0, k0 and the weights are the plain twin's: from a shift where a block
+    takes an output row, from the float32 numbers in a chunk, and up to
+    2^24 the two agree bit for bit."""
     gh = len(range(0, out_h + 2 * spacing, spacing))
     gw = len(range(0, out_w + 2 * spacing, spacing))
+    chunk, blocks = warp_kernel.chunking(header_lib, gw, spacing, out_h,
+                                         out_w)
+    exact = max(out_h, out_w) <= 2 ** 24
+    floats = not exact or gw > warp_kernel.MAX_STAGED_COLUMNS
+    smem_columns = min(gw, warp_kernel.MAX_STAGED_COLUMNS)
+    assert 32 * smem_columns <= _kernel_constant('kMaxSmem')
+    # the rows (2^20 at a time): the lattice rows a block reads exist, and
+    # are the twin's
+    rows = torch.arange(out_h, dtype=torch.float32)
+    for start in range(0, out_h, 2 ** 20):
+        i = np.arange(start, min(start + 2 ** 20, out_h))
+        i0 = _cells(i, spacing, gh, floats)
+        assert (i0 >= 0).all() and (i0 + 1 <= gh - 1).all()
+        if exact:
+            assert np.array_equal(i0, _cells(i, spacing, gh, not floats))
+        assert np.array_equal(
+            i0, _twin_cells(rows[i[0]:i[-1] + 1], spacing, gh)[0])
+    del rows
+    # the columns, chunk by chunk
+    assert blocks == out_h * -(-out_w // chunk)
+    if gw <= warp_kernel.MAX_STAGED_COLUMNS:
+        assert chunk == out_w
+    columns = torch.arange(out_w, dtype=torch.float32)
     shift = spacing.bit_length() - 1
-    i = np.arange(out_h)
-    i0 = np.minimum(i >> shift, gh - 2)
-    t = np.arange(THREADS)[:, None]
-    staged = t + THREADS * np.arange(-(-gw // THREADS))[None, :]
-    staged = np.unique(staged[staged < gw])
-    written = t + THREADS * np.arange(-(-out_w // THREADS))[None, :]
-    written = written[written < out_w]
-    j = np.sort(written)
-    j0 = np.minimum(j >> shift, gw - 2)
-    return (gh, gw), i0, staged, j, j0
-
-
-@pytest.mark.parametrize('spacing', (8, 16, 32))
-@pytest.mark.parametrize('out_h,out_w', [(3660, 3660), (3760, 3760),
-                                         (10980, 10980), (1001, 777)])
-def test_row_staging_covers_every_pixels_lattice_nodes(out_h, out_w,
-                                                       spacing):
-    (gh, gw), i0, staged, j, j0 = _staging(out_h, out_w, spacing)
-    # the lattice rows a block reads exist
-    assert (i0 >= 0).all() and (i0 + 1 <= gh - 1).all()
-    # the threads stage every lattice column once, so j0 and j0 + 1 of
-    # every pixel the block writes are staged
-    assert np.array_equal(staged, np.arange(gw))
-    assert np.isin(j0, staged).all() and np.isin(j0 + 1, staged).all()
-    # every pixel of the row is written once: out[i * out_w + j] covers
-    # the grid once over the blocks
-    assert np.array_equal(j, np.arange(out_w))
-    # the staged row fits the block's shared memory
-    assert 32 * gw <= _kernel_constant('kMaxSmem')
-    assert gw <= warp_kernel.MAX_STAGED_COLUMNS
-    # i0, j0 and the weights as the plain twin computes them
-    inv = warp.f32(1.0 / spacing, torch.zeros(0))
-    for n, idx, g in ((out_h, i0, gh), (out_w, j0, gw)):
-        f = torch.arange(n, dtype=torch.float32) * inv
-        want = torch.floor(f).to(torch.int64).clamp(0, g - 2)
-        assert np.array_equal(idx, want.numpy())
-        weight = (f - want.to(torch.float32)).numpy()
-        assert ((weight >= 0) & (weight < 1)).all()
-        # the kernel's weight from the integers: (k - k0 spacing) * inv
-        shift = spacing.bit_length() - 1
-        numerator = (np.arange(n) - (idx << shift)).astype(np.float32)
-        assert np.array_equal((numerator * np.float32(inv)).view(np.uint32),
-                              weight.view(np.uint32))
+    j_a = 0
+    for c in range(-(-out_w // chunk)):
+        assert j_a == c * chunk
+        width = min(chunk, out_w - j_a)
+        j = j_a + _strided(width)
+        # written once: the chunks tile the row
+        assert np.array_equal(j, np.arange(j_a, j_a + width))
+        j0 = _cells(j, spacing, gw, floats)
+        ka, kb = j0[0], j0[-1] + 1
+        staged = ka + _strided(kb - ka + 1)
+        assert np.array_equal(staged, np.arange(ka, kb + 1))
+        assert len(staged) <= smem_columns and kb <= gw - 1
+        assert (j0 >= ka).all() and (j0 + 1 <= kb).all()
+        # k0 and the weights as the twin computes them
+        want_k0, want_weight = _twin_cells(columns[j_a:j_a + width],
+                                           spacing, gw)
+        assert np.array_equal(j0, want_k0)
+        # the chunks' weight, f - float32(k0)
+        weight = j.astype(np.float32) * np.float32(1.0 / spacing) \
+            - j0.astype(np.float32)
+        assert np.array_equal(weight.view(np.uint32),
+                              want_weight.view(np.uint32))
+        if exact:
+            # an output row's from the integers, (k - k0 spacing) * inv:
+            # the same cells and bits
+            assert np.array_equal(j0, _cells(j, spacing, gw, False))
+            numerator = (j - (j0 << shift)).astype(np.float32)
+            weight = numerator * np.float32(1.0 / spacing)
+            assert np.array_equal(weight.view(np.uint32),
+                                  want_weight.view(np.uint32))
+            assert ((want_weight >= 0) & (want_weight < 1)).all()
+        j_a += width
+    assert j_a == out_w
 
 
 @pytest.mark.parametrize('dx,spacing', [(30.0, 8), (10.0, 32), (20.0, 16)])

@@ -35,6 +35,7 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline float __int2float_rn(int x) { return (float)x; }
 
 inline float __int_as_float(int x) {
   float f;
