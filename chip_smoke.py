@@ -21,13 +21,18 @@ Phases, each printed on its own line; any failure exits nonzero:
    B = 1 / 3, with the ancillary planes and browse varied, per-tile scales
    and offsets that differ between the tiles of a batch, and raw int16
    pairs whose scaled ratios land within 2 ULPs of each ratio threshold.
-   Then each kernel and its plain version timed with CUDA events, K4+K5+K6
+   In every case the coverage counts the per-pixel kernel adds up
+   (n_valid, n_cloud_and_valid, n_not_ocean a tile) equal
+   ``coverage_counts`` of the same tensors. Then each kernel and its plain version timed with CUDA events, K4+K5+K6
    at B = 1 and B = 4. K6 spatial (phase 3c): B = 2 stacks cut into 4 row
    shards of 915 rows (with the 17-row halo in 'cover'), each windowed
    launch against the plain twin on its padded block, cropped, and the
    joined shards against the unsharded K6 launch, in every band kind x
    mode x ancillaries x browse, each launch's body (4 px a thread in a
-   window) against ``wtr_kernel.window_body``; the 4 windowed launches
+   window) against ``wtr_kernel.window_body``, the counts of a window's
+   rows (also with valid pixels counted without the ocean term, as the
+   spatial step counts them) against ``coverage_counts`` and the shards'
+   sums against the unsharded launch's; the 4 windowed launches
    timed against the one unsharded launch, and their pass A and pass B
    apart. The null kernel (phase 3d): the traffic floor
    ``null_fold`` against its plain twin at 3660^2 on int16, float32 and
@@ -57,7 +62,8 @@ Phases, each printed on its own line; any failure exits nonzero:
    snow meets clear cloud-adjacent pixels, with ocean masking; (b)
    ``--offset-and-scale-inputs``. Each run's launch counts start at 0 and
    must show its kernels (run (c) exactly 1 cubic and 2 nearest warps);
-   its layers are held against the numpy oracle, (a)'s ocean against the
+   its layers and coverage metadata are held against the numpy oracle and
+   the host's counts, (a)'s ocean against the
    host's distance-transform ocean mask, and (c)'s DEM and SHAD against
    the host float64 warp and shadow;
 5. campaign: ``python -m proteus_tpu_torch.cli.dswx_campaign``'s ``main``
@@ -68,8 +74,8 @@ Phases, each printed on its own line; any failure exits nonzero:
    'cover' with a shoreline on run (a)'s Fmask. Each run's launch counts
    start at 0 and must show its slices; tile A's files are held against
    phase 4's run of the same mode, tile B's science layers against the
-   numpy oracle; each campaign's peak device memory beside its reading
-   with the eager warp. Phase 5c: (g) and (h), campaigns (f) and (e) again
+   numpy oracle, the campaign totals against the host's counts; each
+   campaign's peak device memory beside its reading with the eager warp. Phase 5c: (g) and (h), campaigns (f) and (e) again
    through ``CampaignRunner`` with each tile's rows cut over a 1 x 4 mesh
    of card 0 (``spatial_shards=4``, K6 spatial): their product files
    byte-identical to (f)'s and (e)'s but for the processing time, their
@@ -518,7 +524,8 @@ def phase_kernel_vs_plain(torch):
                 errors[name] = max(errors[name], err)
             n_runs += 1
         n_cases += 1
-    say(f'kernels == plain chain, bit for bit, in {n_cases} combinations '
+    say(f'kernels == plain chain, bit for bit, and their coverage counts '
+        f'== coverage_counts, in {n_cases} combinations '
         f'(int16/float32 bands x mask/ignore/cover x ancillaries x browse;'
         f' {n_runs} runs, the cover ones on a random and a structured '
         f'fmask; boundary-pushed float32 bands); max |err| {errors}')
@@ -540,14 +547,14 @@ def phase_kernel_vs_plain(torch):
     configs = {'mask': DswxChainConfig(),
                'cover': DswxChainConfig(mask_adjacent_to_cloud_mode='cover')}
     main_kw = dict(shadow=planes['shadow'], landcover=planes['landcover'])
-    # slice: (bands, mode, bytes a pixel moves), as in csrc/wtr_kernel.cu
-    cells = {'wtr_k1': ('int16', 'mask', 25),
-             'wtr_k3': ('float32', 'mask', 37),
-             'wtr_k2': ('int16', 'cover', 28)}
+    # slice: (bands, mode)
+    cells = {'wtr_k1': ('int16', 'mask'), 'wtr_k3': ('float32', 'mask'),
+             'wtr_k2': ('int16', 'cover')}
     copy_bw = _copy_bandwidth(torch)
     stats = {}
-    for name, (dtype, mode, bytes_px) in cells.items():
+    for name, (dtype, mode) in cells.items():
         cfg = configs[mode]
+        bytes_px = FUNCTION_BYTES_PER_PX[name]
 
         def kernel(*a):
             return wtr_kernel.wtr_layers(*a, cfg, **main_kw)
@@ -567,9 +574,7 @@ def phase_kernel_vs_plain(torch):
             f'{tile_bytes / (ms * 1e-3) / 1e9:.1f} GB/s, '
             f'{tile_bytes / (ms * 1e-3) / copy_bw:.1%} of the device copy')
         stats[name] = {'max_abs_err': errors[name], 'ms': ms,
-                       'plain_ms': pms,
-                       **_bound(name, FUNCTION_BYTES_PER_PX[name] * SIZE
-                                * SIZE)}
+                       'plain_ms': pms, **_bound(name, tile_bytes)}
 
     # K1 with a ratio threshold that is no exact rational: the float64
     # ratio tests
@@ -595,11 +600,11 @@ def phase_kernel_vs_plain(torch):
 
 def _launched(torch, *planes, config, scales=None, offsets=None, ocean=None,
               shadow=None, landcover=None, compute_browse=True,
-              minimal=False, window=None):
+              minimal=False, window=None, ocean_in_valid=True):
     """``wtr_layers`` (2-D planes: the bands, fmask, invalid) or
     ``wtr_layers_batched`` (stacks) on the card through the wrappers' own
-    launch: the layers, and the pixels a thread of the per-pixel launch
-    took (8, 4 in a window, or 1)."""
+    launch: the layers and coverage counts, and the pixels a thread of the
+    per-pixel launch took (8, 4 in a window, or 1)."""
     from proteus_tpu_torch.ops import wtr_kernel
     single = planes[0].dim() == 2
 
@@ -608,7 +613,8 @@ def _launched(torch, *planes, config, scales=None, offsets=None, ocean=None,
     out, vectorized = wtr_kernel._launch(
         [lift(b) for b in planes[:6]], lift(planes[6]), lift(planes[7]),
         config, scales, offsets, lift(ocean), lift(shadow), lift(landcover),
-        compute_browse, minimal, batched=not single, window=window)
+        compute_browse, minimal, batched=not single, window=window,
+        ocean_in_valid=ocean_in_valid)
     if single:
         out = {name: t[0] for name, t in out.items()}
     return out, vectorized
@@ -856,8 +862,12 @@ def _inexact_vs_plain(torch, rng, planes, fmasks):
 
 # bytes a pixel each slice's function must move at the main path's flags
 # (shadow, landcover, browse; minimal outputs for K4-K6): its inputs read
-# once and its outputs written once, as in csrc/wtr_kernel.cu. 'cover'
-# (K2) moves no more than K1 does; its state bytes are the kernel's own.
+# once and its outputs written once, as in csrc/wtr_kernel.cu (the [B, 3]
+# coverage counts are 24 B a tile). 'cover' (K2) reads K1's 16 B (six
+# int16 bands, Fmask, invalid, shadow, landcover) and writes its 9 B
+# (DIAG's 2, WTR-1, WTR-2, WTR, BWTR, CONF, CLOUD, BROWSE); the state byte
+# pass A writes and pass B reads, and pass B's read of WTR-2, are the
+# kernel's own 3 B more.
 FUNCTION_BYTES_PER_PX = {'wtr_k1': 25, 'wtr_k2': 25, 'wtr_k3': 37,
                          'wtr_k4': 18, 'wtr_k5': 18, 'wtr_k6': 18}
 # the null kernel over the profile tool's 8 planes (6 bands, fmask,
@@ -867,7 +877,8 @@ NULL_BYTES_PER_PX = {'int16': 6 * 2 + 1 + 1 + 1, 'float32': 6 * 4 + 1 + 1 + 1}
 # for the operations side of the bound: counted line by line in
 # csrc/wtr_kernel.cu, one for each add, multiply, divide, convert,
 # compare, logical operation, shift and select (loads and stores are the
-# bytes side). The function's count, not the kernel's: K2's pass B
+# bytes side); each includes the coverage counts. The function's count,
+# not the kernel's: K2's pass B
 # recomputes its 17 px halo, 128^2/94^2 = 1.85 times the dilation work, on
 # bit-planes, a few word operations a row a step.
 _OPS = {
@@ -888,8 +899,10 @@ _OPS = {
     # wtr_pixel_kernel from the invalid test to WTR-2 at shadow +
     # landcover: invalid (1), WTR-1 (4 adds, 13 compares and selects, the
     # fill select: 18), preliminary CLOUD (8), the aerosol remap (19), the
-    # shadow test (8), the landcover demotions (16)
-    'body': 1 + 18 + 8 + 19 + 8 + 16,
+    # shadow test (8), the landcover demotions (16); the coverage counts
+    # (tile_counts.cuh: not ocean 2, valid 3, cloud and valid 3, their
+    # bits into the group's word 3, a share of the popcounts and adds 1)
+    'body': 1 + 18 + 8 + 19 + 8 + 16 + 12,
     'snow_bit': 3,                     # fmask bit 4 -> CLOUD + 2
     # the DIAG pseudo-binary (4 multiplies, 4 adds, a select: 9) and
     # finish_pixel with browse (CLOUD 2, WTR 12, BWTR 4, CONF 10, BROWSE
@@ -1121,7 +1134,7 @@ def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
 
     say(f'== phase 3c: the spatial launch (K6 spatial) vs plain, 2 x {SIZE}'
         f'x{SIZE} in {SHARDS} row shards')
-    err = n_runs = 0
+    err = n_runs = n_counted = 0
     bodies = {}  # px a thread of the body -> launches that took it
 
     def stacks(kind, mode, extras, browse):
@@ -1166,10 +1179,27 @@ def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
                 if SIZE % wtr_kernel.WINDOW_VEC == 0 and ran == 1:
                     raise AssertionError(f'{label}: the one-pixel body ran')
             bodies[ran] = bodies.get(ran, 0) + 1
+            if extras and not browse:
+                # the spatial step's counts: valid without the ocean term
+                counted, _ = _launched(torch, *block, config=cfg,
+                                       **block_kw, window=window,
+                                       ocean_in_valid=False)
+                want_counts = wtr_kernel.wtr_layers_batched_plain(
+                    *block, cfg, **block_kw, window=window,
+                    ocean_in_valid=False)
+                torch.cuda.synchronize()
+                _compare(torch, {k: counted[k] for k in wtr_kernel.COUNTS},
+                         {k: want_counts[k] for k in wtr_kernel.COUNTS},
+                         f'{label}, valid without the ocean term')
+                n_counted += 1
+                del counted, want_counts
             for name, t in got.items():
                 pieces.setdefault(name, []).append(t)
             del block, block_kw, want
-        joined = {name: torch.cat(p, dim=1) for name, p in pieces.items()}
+        # the layers' row pieces joined, the counts of the shards' rows
+        # summed
+        joined = {name: torch.stack(p).sum(0) if name in wtr_kernel.COUNTS
+                  else torch.cat(p, dim=1) for name, p in pieces.items()}
         err = max(err, _compare(torch, joined, whole,
                                 f'{what}: shards joined vs unsharded'))
         n_runs += 1
@@ -1178,7 +1208,11 @@ def phase_spatial_vs_plain(torch, inputs, planes, fmasks, scaled, copy_bw):
         f'joined shards == the unsharded K6 launch, bit for bit, in '
         f'{n_runs} combinations (int16/float32/device-scale x mask/ignore/'
         f'cover x ancillaries x browse), {SHARDS * n_runs} windowed '
-        f'launches; max |err| {err}; launches by the px a thread of their '
+        f'launches; their coverage counts == coverage_counts of the '
+        f"windows' rows, the shards' sums == the unsharded launch's, and "
+        f'{n_counted} launches more with valid pixels without the ocean '
+        f"term (the spatial step's) == coverage_counts; max |err| {err}; "
+        f'launches by the px a thread of their '
         f'body: {bodies} (the blocks of \'mask\' and \'ignore\' are their '
         f'windows: unwindowed, 8, or 1 with per-tile scales on H * W % 8 = '
         f'{(SIZE // SHARDS) * SIZE % 8})')
@@ -1913,6 +1947,42 @@ def _hold_against_oracle(oracle, label, got, bands, fmask, invalid, mode,
         f'{dict(zip(vals.tolist(), counts.tolist()))}')
 
 
+def _host_counts(fmask, invalid, mode, ocean=None):
+    """A tile's coverage counts on the host: (n_valid, n_cloud_and_valid,
+    n_not_ocean), valid = ~invalid and, with ``ocean``, ocean != 0;
+    cloudy = preliminary CLOUD != 0 (Fmask bit 1 or 3, and bit 2 in
+    'mask' mode)."""
+    import numpy as np
+    land = np.ones(invalid.shape, bool) if ocean is None else ocean != 0
+    valid = ~invalid & land
+    cloudy = (fmask & (2 | 8 | (4 if mode == 'mask' else 0))) != 0
+    return int(valid.sum()), int((cloudy & valid).sum()), int(land.sum())
+
+
+def _hold_coverage(label, output_dir, fmask, invalid, mode, ocean=None):
+    """The product's coverage metadata (the WTR file's) against the
+    host's counts through the reference's percentages
+    (runtime/orchestrator.py after the device chain)."""
+    import glob
+    from proteus_tpu_torch.io.tiff import TiffReader
+    n_valid, n_cloudy, n_land = _host_counts(fmask, invalid, mode, ocean)
+    want = {'SPATIAL_COVERAGE': int(100 * n_valid / invalid.size),
+            'SPATIAL_COVERAGE_EXCLUDING_MASKED_OCEAN':
+                0 if n_land == 0 else int(100 * n_valid / n_land),
+            'CLOUD_COVERAGE': 0 if n_valid == 0
+            else int(100 * n_cloudy / n_valid)}
+    wtr, = glob.glob(os.path.join(output_dir, '*_B01_WTR.tif'))
+    with TiffReader(wtr) as r:
+        md = r.metadata()
+    got = {k: int(md[k]) for k in want}
+    if got != want:
+        raise AssertionError(f'run {label}: coverage metadata {got}, the '
+                             f'host counts give {want}')
+    say(f'  run {label} coverage metadata == the host counts\' {got} '
+        f'(n_valid {n_valid}, n_cloud_and_valid {n_cloudy}, n_not_ocean '
+        f'{n_land})')
+
+
 def _sqrt_on_the_card(torch):
     """``shadow._sqrt`` (x * rsqrt(x), the shadow's and the hillshade's
     square root) on the card against float64: rsqrtf is documented within
@@ -2005,6 +2075,8 @@ def phase_main_path(torch, workdir):
     got = _read_layers(os.path.join(workdir, 'output_c'))
     _hold_against_oracle(oracle, 'c', got, ints, raw['Fmask'], invalid,
                          'mask')
+    _hold_coverage('c', os.path.join(workdir, 'output_c'), raw['Fmask'],
+                   invalid, 'mask')
     margin = 50
     dem_host = warp_to_grid(dem_file, synthetic.geotransform(),
                             CRS.from_epsg(synthetic.EPSG).to_wkt(), SIZE,
@@ -2046,6 +2118,8 @@ def phase_main_path(torch, workdir):
                              'the east 40% ocean, less a 1 km buffer)')
     _hold_against_oracle(oracle, 'a', got, ints, fmask_a, invalid, 'cover',
                          ocean=ocean)
+    _hold_coverage('a', os.path.join(workdir, 'output_a'), fmask_a, invalid,
+                   'cover', ocean)
     cloud = got['CLOUD']
     ignore = np.where(cloud == 255, 255,
                       (cloud & 0xFD) | 2 * ((fmask_a & 16) != 0))
@@ -2066,6 +2140,8 @@ def phase_main_path(torch, workdir):
               for k, v in ints.items()}
     _hold_against_oracle(oracle, 'b', got, scaled, raw['Fmask'], invalid,
                          'mask')
+    _hold_coverage('b', os.path.join(workdir, 'output_b'), raw['Fmask'],
+                   invalid, 'mask')
     say('run b: all layers == oracle on the float32 bands (bit for bit)')
     tile = dict(files=files, raw=raw, ints=ints, invalid=invalid,
                 input_dir=input_dir, input_a=input_a, fmask_a=fmask_a,
@@ -2194,8 +2270,9 @@ def phase_campaign(torch, workdir, tile):
              'cover')):
         key = label[0]
         out = os.path.join(workdir, f'campaign_{key}')
+        stats_path = os.path.join(workdir, f'stats_{key}.json')
         run = _run_campaign(torch, label, dirs + ['-o', out] + anc + extra,
-                            expect, os.path.join(workdir, f'stats_{key}.json'),
+                            expect, stats_path,
                             eager=EAGER_WARP_PEAK_GIB[key])
         for name, n in run.items():
             launches[name] = launches.get(name, 0) + n
@@ -2210,13 +2287,27 @@ def phase_campaign(torch, workdir, tile):
         if key == 'e':
             bands_b = {k: scale * (np.asarray(v, dtype=np.float32) - offset)
                        for k, v in ints_b.items()}
+        ocean = tile['ocean'] if key == 'f' else None
         _hold_against_oracle(oracle, f'{key} tile B', got_b, bands_b,
-                             raw_b['Fmask'], invalid_b, mode,
-                             ocean=tile['ocean'] if key == 'f' else None)
+                             raw_b['Fmask'], invalid_b, mode, ocean=ocean)
+        # the totals: valid pixels not ocean either (the data-parallel
+        # rule, campaign.py:218-231); tiles A, B and A's copy
+        fmask_a = tile['fmask_a'] if key == 'f' else tile['raw']['Fmask']
+        counts = [_host_counts(fm, inv, mode, ocean) for fm, inv in (
+            (fmask_a, tile['invalid']), (raw_b['Fmask'], invalid_b),
+            (fmask_a, tile['invalid']))]
+        want = {'n_valid_total': sum(c[0] for c in counts),
+                'n_cloud_and_valid_total': sum(c[1] for c in counts)}
+        with open(stats_path) as fh:
+            stats = json.load(fh)
+        got = {k: stats[k] for k in want}
+        if got != want:
+            raise AssertionError(f'campaign {key}: totals {got}, the host '
+                                 f'counts give {want}')
         say(f'campaign {key}: tile A == single-tile run '
             f'{single[-1]} on all 11 layers (WTR ... DEM, BROWSE), its copy '
             f'== tile A; tile B == oracle on WTR, BWTR, CONF, DIAG, WTR-1, '
-            f'WTR-2, CLOUD (bit for bit)')
+            f'WTR-2, CLOUD (bit for bit); totals {got} == the host counts')
     return launches, dict(tile_b=tile_b, fmask_b=raw_b['Fmask'],
                           invalid_b=invalid_b, copies=copies)
 
@@ -2247,14 +2338,10 @@ def _spatial_totals(fmasks, invalids, mode):
     """The campaign totals by the reference's spatial rule
     (proteus_tpu/parallel/campaign.py:441-452), on the host: valid =
     ~invalid (no ocean term), cloudy = preliminary CLOUD != 0."""
-    import numpy as np
-    n_valid = n_cloudy = 0
-    for fm, inv in zip(fmasks, invalids):
-        valid = ~inv
-        cloudy = (fm & (2 | 8 | (4 if mode == 'mask' else 0))) != 0
-        n_valid += int(valid.sum())
-        n_cloudy += int((cloudy & valid).sum())
-    return {'n_valid_total': n_valid, 'n_cloud_and_valid_total': n_cloudy}
+    counts = [_host_counts(fm, inv, mode) for fm, inv in zip(fmasks,
+                                                             invalids)]
+    return {'n_valid_total': sum(c[0] for c in counts),
+            'n_cloud_and_valid_total': sum(c[1] for c in counts)}
 
 
 def _run_runner(torch, label, runner, jobs, expect):

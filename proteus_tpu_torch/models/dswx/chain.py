@@ -63,13 +63,20 @@ class DswxChainConfig:
             self.aerosol_psw_aggressive_fmask_values)
 
 
-def coverage_counts(invalid_mask, preliminary_cloud, ocean_mask=None):
+def coverage_counts(invalid_mask, preliminary_cloud, ocean_mask=None,
+                    ocean_in_valid=True):
     """The coverage counters (0-dim int64 tensors), taken on the
-    preliminary cloud layer before aerosol (dswx_hls.py:5104-5111)."""
+    preliminary cloud layer before aerosol (dswx_hls.py:5104-5111). Valid
+    pixels are not invalid and, with ``ocean_in_valid``, not ocean (the
+    reference's spatial campaign step counts them without the ocean mask,
+    proteus_tpu/parallel/campaign.py:441-452). The plain twin of the counts
+    the per-pixel kernel adds up (``ops/csrc/tile_counts.cuh``)."""
     valid = ~invalid_mask.to(torch.bool)
     if ocean_mask is not None:
-        valid = valid & (ocean_mask != 0)
-        n_not_ocean = (ocean_mask != 0).sum()
+        land = ocean_mask != 0
+        if ocean_in_valid:
+            valid = valid & land
+        n_not_ocean = land.sum()
     else:
         n_not_ocean = torch.tensor(valid.numel(), device=valid.device)
     return {'n_valid': valid.sum(),

@@ -98,6 +98,15 @@
 //   division a pixel. Any other width or alignment takes the one-pixel
 //   body (ops/wtr_kernel.py::window_body states the choice and the group
 //   arithmetic for the CPU tests).
+//   Coverage counts: every launch of the per-pixel pass adds each tile's
+//   n_valid, n_cloud_and_valid and n_not_ocean (of the window's rows in a
+//   windowed launch) to a [B, 3] uint64 array, from the Fmask, invalid and
+//   ocean bytes a group's loads already hold: word operations a group, a
+//   run of one tile in registers, warp reductions and one atomicAdd a
+//   counter and a tile a block (tile_counts.cuh, which also splits the
+//   groups that straddle a tile end). The reference takes them beside its
+//   kernel in one compiled program; they cost no byte, and about 0.01 ms
+//   of a tile's issue slots (PERF.md, PR 13).
 //   Operations: each scalar threshold reaches the kernel as an integer
 //   bound (WtrBounds: one compare a test), a ratio test is the sign of
 //   q * num - p * den under the sign of den, and the chain's small
@@ -171,6 +180,8 @@
 #include <initializer_list>
 #include <cuda_runtime.h>
 
+#include "tile_counts.cuh"
+
 // The ratio tests' thresholds and the aerosol bitmask LUT of the int16 pass,
 // passed to the kernel by value: the exact rationals (p, q) or, with
 // ratio_f64 (one of the four is no exact rational), the thresholds as
@@ -204,6 +215,10 @@ struct WtrFlags {
   int32_t exclude_psw_aggressive, collapse, not_water_nodata, cloud_nodata,
       snow_nodata;
   int32_t minimal;  // K5: PACKED_A/B instead of the full outputs
+  // the coverage counts' valid pixels also need ocean != 0 (the single
+  // tile and the data-parallel step; not the spatial step, as the
+  // reference counts it)
+  int32_t ocean_in_valid;
 };
 
 // product class values (proteus_tpu/core/constants.py)
@@ -599,23 +614,31 @@ __device__ __forceinline__ void load_px(const float* __restrict__ p,
   }
 }
 
+// kVec consecutive bytes of a uint8 plane from pixel i as one word, pixel
+// j in byte j: one vector load or one element
+template <int kVec>
+__device__ __forceinline__ uint64_t load_bytes(const uint8_t* __restrict__ p,
+                                               int64_t i) {
+  if constexpr (kVec == kVecPx) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p + i));
+    return (uint64_t)q.y << 32 | q.x;
+  } else if constexpr (kVec == kWindowVec) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p + i));
+  } else {
+    return p[i];
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void unpack_bytes(uint64_t q, int (&v)[kVec]) {
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) v[j] = (int)((q >> (8 * j)) & 0xFFu);
+}
+
 template <int kVec>
 __device__ __forceinline__ void load_px(const uint8_t* __restrict__ p,
                                         int64_t i, int (&v)[kVec]) {
-  if constexpr (kVec == kVecPx) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p + i));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = (int)((q.x >> (8 * j)) & 0xFFu);
-      v[4 + j] = (int)((q.y >> (8 * j)) & 0xFFu);
-    }
-  } else if constexpr (kVec == kWindowVec) {
-    const uint32_t q = __ldg(reinterpret_cast<const unsigned int*>(p + i));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = (int)((q >> (8 * j)) & 0xFFu);
-  } else {
-    v[0] = p[i];
-  }
+  unpack_bytes<kVec>(load_bytes<kVec>(p, i), v);
 }
 
 // The low bytes of four words as one word, a's lowest (three byte
@@ -725,7 +748,10 @@ __device__ __forceinline__ void store_fin(
 // aligned to its vector and, with kScaled, hw a multiple of 8); kWindowed:
 // `groups` groups of kVec of tile blockIdx.y (first == 0, hw < 2^31, kVec
 // == 4: W a multiple of 4, every plane aligned to its vector). kF64Ratio
-// (int16 bands only): the ratio tests as float64 quotients.
+// (int16 bands only): the ratio tests as float64 quotients. Every launch
+// adds its pixels' coverage counts to `counts`, [B, 3] (tile_counts.cuh;
+// div = tile_div(hw, B * hw)): a windowed launch those of the window's
+// rows.
 template <typename Band, bool kScaled, bool kWindowed, int kVec,
           bool kF64Ratio>
 __global__ void __launch_bounds__(
@@ -743,9 +769,10 @@ wtr_pixel_kernel(
     uint8_t* __restrict__ bwtr_o, uint8_t* __restrict__ conf_o,
     uint8_t* __restrict__ cloud_o, uint8_t* __restrict__ browse_o,
     uint8_t* __restrict__ pa_o, uint8_t* __restrict__ pb_o,
-    uint8_t* __restrict__ state_o, int64_t first, int64_t groups,
-    int64_t hw, int width, int row0, int rows_out, int batch, WtrParams P,
-    WtrBounds Bd, WtrParamsF32 Q, WtrFlags F) {
+    uint8_t* __restrict__ state_o, unsigned long long* __restrict__ counts,
+    int64_t first, int64_t groups, int64_t hw, TileDiv div, int width,
+    int row0, int rows_out, int batch, WtrParams P, WtrBounds Bd,
+    WtrParamsF32 Q, WtrFlags F) {
   static_assert(kVec == 1 || kVec == (kWindowed ? kWindowVec : kVecPx),
                 "8 pixels a thread unwindowed, 4 in a window, or one");
   // K4: the batch's scales (sv[6 t + j]) and offsets (sv[6 B + 6 t + j])
@@ -760,29 +787,17 @@ wtr_pixel_kernel(
     }
   }
   __syncthreads();
-  // kWindowed: the stack index of tile blockIdx.y's first pixel, and the
-  // window index its block row 0 would have (a group's o = out_tile + p)
-  const int64_t in_tile = kWindowed ? (int64_t)blockIdx.y * hw : 0;
-  const int64_t out_tile = kWindowed
-      ? ((int64_t)blockIdx.y * rows_out - row0) * width : 0;
+  // the coverage counts (tile_counts.cuh): a run of one tile in registers
+  const CountRule rule = count_rule(F.mask_adjacent, F.with_ocean,
+                                    F.ocean_in_valid);
+  TileRun run = thread_run<kWindowed>();
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        g < groups; g += stride) {
-    // i: the group's index in the stack; o: in the output window, -1
-    // outside it
-    int64_t i, o;
-    if constexpr (kWindowed) {
-      // p, the group's first pixel in its tile, and its row: 32-bit; the
-      // group's pixels share the row
-      const int p = (int)g * kVec;
-      i = in_tile + p;
-      o = (unsigned)(p / width - row0) < (unsigned)rows_out ? out_tile + p
-                                                            : -1;
-      if (o < 0 && !F.cover) continue;
-    } else {
-      i = first + g * kVec;
-      o = i;
-    }
+    const Group grp = group_at<kVec, kWindowed>(g, first, hw, div, width,
+                                                row0, rows_out);
+    const int64_t i = grp.i, o = grp.o;
+    if (kWindowed && o < 0 && !F.cover) continue;
     // every load of the group before the first use
     Band b[kVec], gr[kVec], r[kVec], nr[kVec], s1[kVec], s2[kVec];
     load_px<kVec>(blue, i, b);
@@ -791,12 +806,20 @@ wtr_pixel_kernel(
     load_px<kVec>(nir, i, nr);
     load_px<kVec>(swir1, i, s1);
     load_px<kVec>(swir2, i, s2);
-    int fm[kVec], inv[kVec], oc[kVec] = {}, sh[kVec] = {}, lc[kVec] = {};
-    load_px<kVec>(fmask, i, fm);
-    load_px<kVec>(invalid, i, inv);
-    if (F.with_ocean) load_px<kVec>(ocean, i, oc);
+    const uint64_t fm8 = load_bytes<kVec>(fmask, i);
+    const uint64_t inv8 = load_bytes<kVec>(invalid, i);
+    const uint64_t oc8 = F.with_ocean ? load_bytes<kVec>(ocean, i) : 0;
+    int fm[kVec], inv[kVec], oc[kVec], sh[kVec] = {}, lc[kVec] = {};
+    unpack_bytes<kVec>(fm8, fm);
+    unpack_bytes<kVec>(inv8, inv);
+    unpack_bytes<kVec>(oc8, oc);
     if (F.with_shadow) load_px<kVec>(shadow, i, sh);
     if (F.with_landcover) load_px<kVec>(landcover, i, lc);
+    // the counts of the window's pixels (a windowed group lies in one tile
+    // and one row), from the loaded bytes
+    if (o >= 0)
+      count_group<kVec, kWindowed>(
+          run, grp, group_masks<kVec>(fm8, inv8, oc8, rule), hw, counts);
 
     Pixel px[kVec];
 #pragma unroll
@@ -805,8 +828,7 @@ wtr_pixel_kernel(
       if constexpr (kScaled) {
         // the group lies in one tile (hw is a multiple of kVec, or the
         // tile is the grid row)
-        const float* sc = sv + 6 * (kWindowed ? (int64_t)blockIdx.y
-                                              : i / hw);
+        const float* sc = sv + 6 * grp.tile;
         const float* of = sc + 6 * batch;
         t = diag_tests<false>(scale_band(b[j], sc[0], of[0]),
                               scale_band(gr[j], sc[1], of[1]),
@@ -836,6 +858,7 @@ wtr_pixel_kernel(
     store_fin<kVec>(cloud_o, wtr_o, bwtr_o, conf_o, o, px);
     if (F.compute_browse) store_u8<kVec>(browse_o, o, px, &Pixel::browse);
   }
+  flush_block(run, counts);
 }
 
 // A span row of a bit-plane: bit c of (hi:lo) is span column c.
@@ -1021,6 +1044,9 @@ static bool aligned(const void* p, int bytes) {
   return ((uintptr_t)p % (uintptr_t)bytes) == 0;  // (a null plane passes)
 }
 
+// `counts` ([batch, 3] uint64, not null) is zeroed on `stream` and then
+// holds each tile's coverage counts (tile_counts.cuh): n_valid,
+// n_cloud_and_valid, n_not_ocean, over the rows of the window.
 // `bounds` are read for int16 bands (band_kind 0) only. `vectorized`, if
 // not null, is set to the pixels a thread of the body that took the launch:
 // 8 (the 8-pixel body, on all but the last n % 8 pixels), 4 (the windowed
@@ -1032,11 +1058,13 @@ extern "C" int wtr_pixel_launch(
     const void* invalid, const void* ocean, const void* shadow,
     const void* landcover, void* diag, void* wtr1, void* wtr2, void* wtr,
     void* bwtr, void* conf, void* cloud, void* browse, void* packed_a,
-    void* packed_b, void* state, int batch, int height, int width, int row0,
-    int rows_out, const WtrParams* params, const WtrBounds* bounds_in,
+    void* packed_b, void* state, void* counts, int batch, int height,
+    int width, int row0, int rows_out, const WtrParams* params,
+    const WtrBounds* bounds_in,
     const WtrParamsF32* params_f32, const WtrFlags* flags, int* vectorized,
     void* stream) {
-  if (batch > kMaxBatch || bad_window(batch, height, width, row0, rows_out))
+  if (batch > kMaxBatch || bad_window(batch, height, width, row0, rows_out)
+      || !counts)
     return (int)cudaErrorInvalidValue;
   if (const int err = check_device(blue)) return err;
   const WtrParams& P = *params;
@@ -1052,6 +1080,11 @@ extern "C" int wtr_pixel_launch(
   const int64_t n = batch * hw;
   const int threads = 256;
   const cudaStream_t s = (cudaStream_t)stream;
+  const TileDiv div = tile_div(hw, n);
+  // the launches add to the counters
+  if (const cudaError_t e = cudaMemsetAsync(
+          counts, 0, sizeof(unsigned long long) * kCounts * batch, s))
+    return (int)e;
   const bool windowed = rows_out != height;
   // the windowed body counts a tile's pixels in 32 bits
   if (windowed && hw > INT32_MAX) return (int)cudaErrorInvalidValue;
@@ -1093,9 +1126,9 @@ extern "C" int wtr_pixel_launch(
       (const uint8_t*)shadow, (const uint8_t*)landcover, (uint16_t*)diag,   \
       (uint8_t*)wtr1, (uint8_t*)wtr2, (uint8_t*)wtr, (uint8_t*)bwtr,        \
       (uint8_t*)conf, (uint8_t*)cloud, (uint8_t*)browse,                    \
-      (uint8_t*)packed_a, (uint8_t*)packed_b, (uint8_t*)state, first,       \
-      groups, hw, width, row0, rows_out, batch, P, bounds, *params_f32,     \
-      *flags
+      (uint8_t*)packed_a, (uint8_t*)packed_b, (uint8_t*)state,              \
+      (unsigned long long*)counts, first, groups, hw, div, width, row0,     \
+      rows_out, batch, P, bounds, *params_f32, *flags
 #define WTR_PIXEL_LAUNCH(T, SCALED, WINDOWED, VEC, F64)                      \
   do {                                                                      \
     auto kernel = wtr_pixel_kernel<T, SCALED, WINDOWED, VEC, F64>;          \

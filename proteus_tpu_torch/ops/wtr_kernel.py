@@ -24,6 +24,11 @@ step, with the other three slices:
   inputs are a block of tile rows with its halo, the outputs the block's
   window of the shard's own rows.
 
+Every entry point also returns each tile's coverage counts (``COUNTS``:
+int64, 0-dim from ``wtr_layers``, [B] from ``wtr_layers_batched``), which
+the per-pixel kernel adds up as it goes (``csrc/tile_counts.cuh``); their
+plain twin is ``models/dswx/chain.py::coverage_counts``.
+
 Dispatch: CPU tensors run ``wtr_layers_plain`` or
 ``wtr_layers_batched_plain``, built on the plain PyTorch chain of
 ``proteus_tpu_torch.models.dswx.chain``; CUDA tensors launch the kernels or
@@ -44,7 +49,9 @@ import torch
 from proteus_tpu_torch.core import constants as C
 from proteus_tpu_torch.core.f32exact import int_gt_bound, int_lt_bound
 from proteus_tpu_torch.core.thresholds import ExactThresholds
-from proteus_tpu_torch.models.dswx.chain import dswx_chain
+from proteus_tpu_torch.models.dswx.chain import coverage_counts, dswx_chain
+from proteus_tpu_torch.models.dswx.masking import \
+    compute_preliminary_cloud_layer
 from proteus_tpu_torch.models.dswx.diagnostics import f32
 
 # launches of each kernel slice since the counts were last reset (set a
@@ -54,6 +61,8 @@ LAUNCHES['wtr_k6_spatial'] = 0
 
 LAYERS = ('DIAG', 'WTR-1', 'WTR-2', 'WTR', 'BWTR', 'CONF', 'CLOUD')
 PACKED = ('PACKED_A', 'PACKED_B')
+# the coverage counts of a tile, in the order of the kernel's [B, 3] rows
+COUNTS = ('n_valid', 'n_cloud_and_valid', 'n_not_ocean')
 MODES = ('mask', 'ignore', 'cover')
 BANDS = ('blue', 'green', 'red', 'nir', 'swir1', 'swir2')
 MAX_SCALED_BATCH = 1024  # K4 stages 48 B a tile in 48 KB of shared memory
@@ -100,7 +109,7 @@ class WtrFlags(ctypes.Structure):
         'with_ocean', 'with_shadow', 'with_landcover', 'compute_browse',
         'mask_adjacent', 'apply_aerosol', 'cover', 'exclude_psw_aggressive',
         'collapse', 'not_water_nodata', 'cloud_nodata', 'snow_nodata',
-        'minimal')]
+        'minimal', 'ocean_in_valid')]
 
 
 def _le_bound(field, tval):
@@ -169,7 +178,7 @@ def _on_cpu(device):
 
 
 def kernel_flags(config, with_ocean, with_shadow, with_landcover,
-                 compute_browse, minimal=False):
+                 compute_browse, minimal=False, ocean_in_valid=True):
     mode = config.mask_adjacent_to_cloud_mode
     return WtrFlags(
         int(with_ocean), int(with_shadow), int(with_landcover),
@@ -179,7 +188,8 @@ def kernel_flags(config, with_ocean, with_shadow, with_landcover,
         int(config.flag_collapse_wtr_classes),
         int(config.not_water_in_browse == 'nodata'),
         int(config.cloud_in_browse == 'nodata'),
-        int(config.snow_in_browse == 'nodata'), int(minimal))
+        int(config.snow_in_browse == 'nodata'), int(minimal),
+        int(ocean_in_valid))
 
 
 def kernel_slices(float_bands, mode, device_scale=False, minimal=False,
@@ -237,31 +247,27 @@ def pack_minimal(out):
 def wtr_layers_plain(blue, green, red, nir, swir1, swir2, fmask, invalid,
                      config, ocean=None, shadow=None, landcover=None,
                      compute_browse=True):
-    """The kernels' layers from the plain PyTorch chain (any device)."""
+    """The kernels' layers and coverage counts from the plain PyTorch
+    chain (any device)."""
     return dswx_chain(blue, green, red, nir, swir1, swir2, fmask, invalid,
                       config, ocean_mask=ocean, shadow_layer=shadow,
                       landcover_mask=landcover,
-                      compute_browse=compute_browse, compute_stats=False)
+                      compute_browse=compute_browse, compute_stats=True)
 
 
 def wtr_layers_batched_plain(blue, green, red, nir, swir1, swir2, fmask,
                              invalid, config, scales=None, offsets=None,
                              ocean=None, shadow=None, landcover=None,
                              compute_browse=True, minimal=False,
-                             window=None):
+                             window=None, ocean_in_valid=True):
     """``wtr_layers_batched`` from the plain PyTorch chain (any device):
     per tile, the cast ``scales[j] * (band.float() - offsets[j])`` in
     float32 tensors (with ``scales``), then ``dswx_chain``, then
     ``pack_minimal`` (with ``minimal``); the layers stacked, and with
-    ``window`` cropped to its rows."""
-    if window is not None:
-        row0, rows = _check_window(window, blue.shape[1])
-        out = wtr_layers_batched_plain(
-            blue, green, red, nir, swir1, swir2, fmask, invalid, config,
-            scales, offsets, ocean, shadow, landcover, compute_browse,
-            minimal)
-        return {name: t[:, row0:row0 + rows].contiguous()
-                for name, t in out.items()}
+    ``window`` cropped to its rows. The coverage counts of each tile's
+    rows of the window by ``coverage_counts``."""
+    row0, rows = _check_window(window or (0, blue.shape[1]), blue.shape[1])
+    own = slice(row0, row0 + rows)
     bands = (blue, green, red, nir, swir1, swir2)
     tiles = []
     for k in range(blue.shape[0]):
@@ -269,12 +275,19 @@ def wtr_layers_batched_plain(blue, green, red, nir, swir1, swir2, fmask,
         if scales is not None:
             tile = [scales[k, j] * (b.to(torch.float32) - offsets[k, j])
                     for j, b in enumerate(tile)]
-        out = wtr_layers_plain(
-            *tile, fmask[k], invalid[k], config,
-            *[None if a is None else a[k] for a in (ocean, shadow,
-                                                    landcover)],
-            compute_browse=compute_browse and not minimal)
-        tiles.append(pack_minimal(out) if minimal else out)
+        out = dswx_chain(*tile, fmask[k], invalid[k], config,
+                         *[None if a is None else a[k] for a in (
+                             ocean, shadow, landcover)],
+                         compute_browse=compute_browse and not minimal,
+                         compute_stats=False)
+        if minimal:
+            out = pack_minimal(out)
+        out = {name: t[own] for name, t in out.items()}
+        out.update(coverage_counts(
+            invalid[k, own], compute_preliminary_cloud_layer(
+                fmask[k, own], config.mask_adjacent_to_cloud_mode),
+            None if ocean is None else ocean[k, own], ocean_in_valid))
+        tiles.append(out)
     return {name: torch.stack([t[name] for t in tiles])
             for name in tiles[0]}
 
@@ -282,9 +295,10 @@ def wtr_layers_batched_plain(blue, green, red, nir, swir1, swir2, fmask,
 def wtr_layers(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
                ocean=None, shadow=None, landcover=None, compute_browse=True):
     """DIAG (uint16) and WTR-1, WTR-2, WTR, BWTR, CONF, CLOUD, BROWSE
-    (uint8) of one (H, W) tile as a dict; the plain chain for CPU tensors,
-    the CUDA kernels for CUDA tensors. Bands are all int16 or all
-    float32."""
+    (uint8) of one (H, W) tile as a dict, with its coverage counts
+    (``COUNTS``, 0-dim int64; valid pixels are not invalid and, with
+    ``ocean``, not ocean); the plain chain for CPU tensors, the CUDA
+    kernels for CUDA tensors. Bands are all int16 or all float32."""
     if _on_cpu(blue.device):
         return wtr_layers_plain(blue, green, red, nir, swir1, swir2, fmask,
                                 invalid, config, ocean, shadow, landcover,
@@ -305,7 +319,7 @@ def wtr_layers(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
 def wtr_layers_batched(blue, green, red, nir, swir1, swir2, fmask, invalid,
                        config, scales=None, offsets=None, ocean=None,
                        shadow=None, landcover=None, compute_browse=True,
-                       minimal=False, window=None):
+                       minimal=False, window=None, ocean_in_valid=True):
     """The layers of a [B, H, W] stack of tiles in one launch (K6): full
     outputs as ``wtr_layers`` gives them, stacked, or with ``minimal``
     PACKED_A and PACKED_B (K5). Bands are all int16 or all float32; with
@@ -318,19 +332,24 @@ def wtr_layers_batched(blue, green, red, nir, swir1, swir2, fmask, invalid,
     layers of block rows row0 .. row0 + rows - 1 (the spatial launch,
     ``wtr_k6_spatial``). Rows beyond the block count as outside the image.
 
+    With the layers, each tile's coverage counts (``COUNTS``, [B] int64)
+    over the rows of the window: valid pixels are not invalid and, with
+    ``ocean`` and ``ocean_in_valid``, not ocean.
+
     CPU tensors run ``wtr_layers_batched_plain``; CUDA tensors launch the
     kernels."""
     if _on_cpu(blue.device):
         return wtr_layers_batched_plain(
             blue, green, red, nir, swir1, swir2, fmask, invalid, config,
             scales, offsets, ocean, shadow, landcover, compute_browse,
-            minimal, window)
+            minimal, window, ocean_in_valid)
     if blue.dim() != 3:
         raise ValueError(f'wtr_layers_batched: bands must be (B, H, W), '
                          f'got {tuple(blue.shape)}')
     return _launch([blue, green, red, nir, swir1, swir2], fmask, invalid,
                    config, scales, offsets, ocean, shadow, landcover,
-                   compute_browse, minimal, batched=True, window=window)[0]
+                   compute_browse, minimal, batched=True, window=window,
+                   ocean_in_valid=ocean_in_valid)[0]
 
 
 def _check_window(window, height):
@@ -357,12 +376,13 @@ def window_body(width, planes):
 
 
 def _launch(bands, fmask, invalid, config, scales, offsets, ocean, shadow,
-            landcover, compute_browse, minimal, batched, window=None):
-    """The layers of a [B, H, W] stack of CUDA tensors, and the pixels a
-    thread of the per-pixel launch took (``pixel_pass``)."""
+            landcover, compute_browse, minimal, batched, window=None,
+            ocean_in_valid=True):
+    """The layers and counts of a [B, H, W] stack of CUDA tensors, and the
+    pixels a thread of the per-pixel launch took (``pixel_pass``)."""
     out, state, flags, slices, vectorized = pixel_pass(
         *bands, fmask, invalid, config, scales, offsets, ocean, shadow,
-        landcover, compute_browse, minimal, batched, window)
+        landcover, compute_browse, minimal, batched, window, ocean_in_valid)
     if state is not None:
         launch_k2(state, out, flags, slices,
                   row0=0 if window is None else int(window[0]))
@@ -386,7 +406,7 @@ def _bind(lib):
     if lib.wtr_pixel_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wtr_pixel_launch.argtypes = (
-            [i] + [p] * 24 + [i] * 5 + [ctypes.POINTER(WtrParams),
+            [i] + [p] * 25 + [i] * 5 + [ctypes.POINTER(WtrParams),
                                         ctypes.POINTER(WtrBounds),
                                         ctypes.POINTER(WtrParamsF32),
                                         ctypes.POINTER(WtrFlags),
@@ -418,12 +438,14 @@ def _count(slices):
 def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
                scales=None, offsets=None, ocean=None, shadow=None,
                landcover=None, compute_browse=True, minimal=False,
-               batched=True, window=None):
+               batched=True, window=None, ocean_in_valid=True):
     """Launch the per-pixel kernel on a [B, H, W] stack of CUDA tensors:
     K1, K3 or K4, with K5's packed outputs if ``minimal``, or in 'cover'
     mode pass A of K2; with ``window = (row0, rows)`` the layers are the
     [B, rows, W] window of the stack's rows (the state stays [B, H, W]).
-    Returns the layers, the 'cover' state bytes (None in the other modes;
+    Returns the layers with each tile's coverage counts (``COUNTS``, views
+    of the kernel's [B, 3] int64 counters, of the window's rows), the
+    'cover' state bytes (None in the other modes;
     ``launch_k2`` finishes the layers from them), the launch flags, the
     slices of the call (``kernel_slices``; K6 with ``batched``, K6 spatial
     with a window) and the pixels a thread of the body that took the launch:
@@ -465,7 +487,8 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
     float_bands = blue.dtype == torch.float32 or device_scale
     params, bounds, params_f32 = kernel_params(config, float_bands)
     flags = kernel_flags(config, ocean is not None, shadow is not None,
-                         landcover is not None, compute_browse, minimal)
+                         landcover is not None, compute_browse, minimal,
+                         ocean_in_valid)
 
     row0, rows = _check_window(window or (0, shape[1]), shape[1])
 
@@ -479,6 +502,9 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
         names = LAYERS[1:] + (('BROWSE',) if compute_browse else ())
         out.update({name: plane() for name in names})
     state = plane(height=shape[1]) if mode == 'cover' else None
+    # the launch zeroes them on its stream, then adds to them
+    counts = torch.empty((batch, len(COUNTS)), dtype=torch.int64,
+                         device=device)
 
     lib = _bind(build('wtr_kernel').lib)
     slices = kernel_slices(float_bands, mode, device_scale, minimal,
@@ -496,12 +522,13 @@ def pixel_pass(blue, green, red, nir, swir1, swir2, fmask, invalid, config,
             _ptr(scales), _ptr(offsets), _ptr(fmask), _ptr(invalid),
             _ptr(ocean), _ptr(shadow), _ptr(landcover),
             *[_ptr(out.get(k)) for k in LAYERS + ('BROWSE',) + PACKED],
-            _ptr(state), batch, shape[1], shape[2], row0, rows,
+            _ptr(state), _ptr(counts), batch, shape[1], shape[2], row0, rows,
             ctypes.byref(params), ctypes.byref(bounds),
             ctypes.byref(params_f32),
             ctypes.byref(flags), ctypes.byref(vectorized), stream)
     _raise_on(lib, err, f'{"+".join(slices)} launch')
     _count(s for s in slices if s != 'wtr_k2')
+    out.update(zip(COUNTS, counts.unbind(1)))
     return out, state, flags, slices, vectorized.value
 
 
@@ -515,7 +542,7 @@ def launch_k2(state, out, flags, slices=('wtr_k2',), row0=0):
     from proteus_tpu_torch.ops.build import build
     lib = _bind(build('wtr_kernel').lib)
     batch, height, width = state.shape
-    rows = next(iter(out.values())).shape[1]
+    rows = out['PACKED_A' if flags.minimal else 'DIAG'].shape[1]
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = lib.wtr_k2_launch(

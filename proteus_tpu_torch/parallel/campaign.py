@@ -37,7 +37,6 @@ import numpy as np
 import torch
 
 from proteus_tpu_torch.core import constants as C
-from proteus_tpu_torch.models.dswx import masking
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops.wtr_kernel import BANDS, wtr_layers_batched
 from proteus_tpu_torch.parallel.mesh import (make_tile_mesh,
@@ -142,7 +141,6 @@ def make_campaign_step(config: DswxChainConfig, devices,
     devices = list(devices)
     if minimal is None:
         minimal = all(d.type == 'cuda' for d in devices)
-    mode = config.mask_adjacent_to_cloud_mode
     n_lead = 10 if device_scale else 8
 
     def local_step(b, g, r, n, s1, s2, fm, inv, *rest):
@@ -153,19 +151,15 @@ def make_campaign_step(config: DswxChainConfig, devices,
         ocean = next(it) if with_ocean else None
         shadow = next(it) if with_shadow else None
         lc = next(it) if with_landcover else None
+        # the layers and each tile's coverage counts, valid pixels also
+        # not ocean (campaign.py:218-231), which the kernel adds up as it
+        # goes
         out = wtr_layers_batched(
             b, g, r, n, s1, s2, fm, inv, config, scales=scales,
             offsets=offsets, ocean=ocean, shadow=shadow, landcover=lc,
             compute_browse=compute_browse, minimal=minimal)
-        # coverage counts a tile (the kernel emits layers only), on the
-        # preliminary cloud layer before aerosol (campaign.py:218-231)
         # (JAX's n_not_ocean count is left out: no total reads it)
-        valid = ~inv.to(torch.bool)
-        if ocean is not None:
-            valid = valid & (ocean != 0)
-        prelim = masking.compute_preliminary_cloud_layer(fm, mode)
-        out['n_valid'] = valid.sum((1, 2))
-        out['n_cloud_and_valid'] = ((prelim != 0) & valid).sum((1, 2))
+        del out['n_not_ocean']
         return out
 
     def step(*args):
@@ -178,10 +172,12 @@ def make_campaign_step(config: DswxChainConfig, devices,
         outs = [local_step(*[s[k] for s in shares])
                 for k in range(len(devices))]
         out = {name: [t for o in outs for t in o[name]] for name in outs[0]}
+        # a device's two totals in one read, which waits for its launches
+        sums = [torch.stack([o['n_valid'].sum(), o['n_cloud_and_valid'].sum()])
+                .tolist() for o in outs]
         totals = {
-            'n_valid_total': sum(int(o['n_valid'].sum()) for o in outs),
-            'n_cloud_and_valid_total': sum(
-                int(o['n_cloud_and_valid'].sum()) for o in outs),
+            'n_valid_total': sum(v for v, _ in sums),
+            'n_cloud_and_valid_total': sum(c for _, c in sums),
             'n_tiles_total': sum(int(s.shape[0]) for s in shares[0]),
         }
         return out, totals
@@ -249,8 +245,7 @@ def make_spatial_campaign_step(config: DswxChainConfig, mesh,
                          '(it feeds the float32 science chain)')
     mesh = [list(row) for row in mesh]
     n_tile, n_space = len(mesh), len(mesh[0])
-    mode = config.mask_adjacent_to_cloud_mode
-    reach = halo if mode == 'cover' else 0
+    reach = halo if config.mask_adjacent_to_cloud_mode == 'cover' else 0
     n_in = 8 + (2 if device_scale else 0) + int(with_ocean) \
         + int(with_shadow) + int(with_landcover)
 
@@ -272,7 +267,7 @@ def make_spatial_campaign_step(config: DswxChainConfig, mesh,
                 f' ({hl}); use fewer space shards')
         per_row = b // n_tile
         images = list(args[:8]) + list(args[10 if device_scale else 8:])
-        out, counts = {}, []
+        out, counts = {}, {}
         for t, row in enumerate(mesh):
             tiles = slice(t * per_row, (t + 1) * per_row)
             for j, dev in enumerate(row):
@@ -289,24 +284,26 @@ def make_spatial_campaign_step(config: DswxChainConfig, mesh,
                     kw['scales'], kw['offsets'] = (
                         torch.as_tensor(v)[tiles].to(dev).contiguous()
                         for v in args[8:10])
+                # the shard's layers and the counts of its own rows, valid
+                # pixels without the ocean term (campaign.py:441-452)
                 layers = wtr_layers_batched(
                     b_, g, r, n, s1, s2, fm, inv, config,
                     compute_browse=compute_browse, minimal=False,
-                    window=(r0 - a0, hl), **kw)
+                    window=(r0 - a0, hl), ocean_in_valid=False, **kw)
+                counts.setdefault(dev, []).append(torch.stack(
+                    [layers.pop('n_valid').sum(),
+                     layers.pop('n_cloud_and_valid').sum()]))
+                del layers['n_not_ocean']
                 for name, v in layers.items():
                     pieces = out.setdefault(name, [[] for _ in range(b)])
                     for i in range(per_row):
                         pieces[t * per_row + i].append(v[i])
-                own = slice(r0 - a0, r0 - a0 + hl)
-                valid = ~inv[:, own].to(torch.bool)
-                prelim = masking.compute_preliminary_cloud_layer(
-                    fm[:, own], mode)
-                counts.append((valid.sum(),
-                               ((prelim != 0) & valid).sum()))
-        # reading the counts waits for every shard's launch
+        # one read of a device's totals, which waits for its shards'
+        # launches
+        sums = [torch.stack(c).sum(0).tolist() for c in counts.values()]
         totals = {
-            'n_valid_total': sum(int(c[0]) for c in counts),
-            'n_cloud_and_valid_total': sum(int(c[1]) for c in counts),
+            'n_valid_total': sum(v for v, _ in sums),
+            'n_cloud_and_valid_total': sum(c for _, c in sums),
             'n_tiles_total': b,
         }
         return out, totals

@@ -34,14 +34,13 @@ from proteus_tpu_torch.geo.warp import warp_to_grid_device, worldcover_year_of
 from proteus_tpu_torch.io import hls as hls_io
 from proteus_tpu_torch.io.png import geotiff2png
 from proteus_tpu_torch.io.vrt import build_vrt
-from proteus_tpu_torch.models.dswx import masking
-from proteus_tpu_torch.models.dswx.chain import (DswxChainConfig,
-                                                 coverage_counts)
+from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.models.dswx.landcover import \
     create_landcover_mask_arrays
 from proteus_tpu_torch.models.dswx.shadow import (
     compute_opera_shadow_layer_exact, compute_otsu_shadow_layer_exact)
-from proteus_tpu_torch.ops.wtr_kernel import kernel_slices, wtr_layers
+from proteus_tpu_torch.ops.wtr_kernel import (COUNTS, kernel_slices,
+                                              wtr_layers)
 from proteus_tpu_torch.runtime import ctables
 from proteus_tpu_torch.runtime import metadata as md_util
 from proteus_tpu_torch.runtime import product_writer as pw
@@ -420,21 +419,21 @@ def generate_dswx_layers(input_list,
             bands = [to_dev(a) for a in (blue, green, red, nir, swir1, swir2)]
             fmask_d = to_dev(fmask)
             invalid_d = to_dev(invalid_array)
+            # the layers and the coverage counts, which the kernel adds up
+            # as it goes (the reference's jitted stats,
+            # orchestrator.py:477-495)
             out = wtr_layers(*bands, fmask_d, invalid_d, chain_config,
                              ocean=ocean_mask, shadow=shadow_layer,
                              landcover=landcover_mask,
                              compute_browse=output_browse_image is not None)
-            # coverage counts: a separate pass of plain reductions
-            # (orchestrator.py:477-495)
-            out.update(coverage_counts(
-                invalid_d, masking.compute_preliminary_cloud_layer(
-                    fmask_d, p['mask_adjacent_to_cloud_mode']), ocean_mask))
             del bands, fmask_d, invalid_d
             synchronize(device)
         with timers.stage('device->host transfer'), \
                 trace.annotate('device->host transfer'):
-            out = {k: (v.item() if v.dim() == 0 else v.cpu().numpy())
-                   for k, v in out.items()}
+            # the three counts in one read
+            n_valid, n_cloud_and_valid, n_not_ocean = torch.stack(
+                [out.pop(k) for k in COUNTS]).tolist()
+            out = {k: v.cpu().numpy() for k, v in out.items()}
             if dem is not None:
                 dem = dem.cpu().numpy()
                 shadow_layer = shadow_layer.cpu().numpy()
@@ -443,9 +442,6 @@ def generate_dswx_layers(input_list,
 
     # ---- coverage statistics -> metadata ------------------------------------
     total_number_of_pixels = length * width
-    n_valid = int(out['n_valid'])
-    n_cloud_and_valid = int(out['n_cloud_and_valid'])
-    n_not_ocean = int(out['n_not_ocean'])
     spatial_coverage = int(100 * float(n_valid) / total_number_of_pixels)
     cloud_coverage = (0 if n_valid == 0
                       else int(100 * float(n_cloud_and_valid) / n_valid))

@@ -66,7 +66,7 @@ def realistic_layers(image, device):
     no aerosol remap, no ancillaries (the JAX tool's ``oracle.full_chain``
     call)."""
     from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
-    from proteus_tpu_torch.ops.wtr_kernel import wtr_layers
+    from proteus_tpu_torch.ops.wtr_kernel import COUNTS, wtr_layers
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -75,7 +75,8 @@ def realistic_layers(image, device):
                      dev(image['invalid_ind_array'].astype(bool)),
                      DswxChainConfig(apply_aerosol_class_remapping=False),
                      compute_browse=False)
-    return {name: t.cpu().numpy() for name, t in out.items()}
+    return {name: t.cpu().numpy() for name, t in out.items()
+            if name not in COUNTS}
 
 
 def budget(size, passes, work, device, say=print):

@@ -285,7 +285,7 @@ def test_kernel_plain_matches_pallas_interpret(mode, with_ancillaries,
                                 T(inp['fmask']), T(inp['invalid']), tcfg,
                                 compute_browse=browse,
                                 **{k: T(inp[k]) for k in extras})
-    assert sorted(got) == sorted(want)
+    assert sorted(got) == sorted([*want, *wtr_kernel.COUNTS])
     for name in want:
         assert_same(got[name], want[name], name)
 
@@ -302,11 +302,12 @@ def test_cpu_tensors_never_launch_the_kernel():
         out = wtr_kernel.wtr_layers(
             *[T(b) for b in bands], T(INPUTS['fmask']), T(INPUTS['invalid']),
             cfg)
-        assert sorted(out) == sorted(LAYERS + ('BROWSE',))
+        assert sorted(out) == sorted(LAYERS + ('BROWSE',)
+                                     + wtr_kernel.COUNTS)
         out = wtr_kernel.wtr_layers_batched(
             *[T(b[None]) for b in bands], T(INPUTS['fmask'][None]),
             T(INPUTS['invalid'][None]), cfg, minimal=True)
-        assert sorted(out) == ['PACKED_A', 'PACKED_B']
+        assert sorted(out) == sorted(wtr_kernel.PACKED + wtr_kernel.COUNTS)
         out = wtr_kernel.wtr_layers_batched(
             *[T(b[None]) for b in bands], T(INPUTS['fmask'][None]),
             T(INPUTS['invalid'][None]), cfg, window=(1, 2))
@@ -355,7 +356,7 @@ def test_kernel_params_layout():
     flags = wtr_kernel.kernel_flags(
         tchain.DswxChainConfig(mask_adjacent_to_cloud_mode='cover'),
         True, False, True, True)
-    assert ctypes.sizeof(flags) == 13 * 4
-    assert flags.minimal == 0
+    assert ctypes.sizeof(flags) == 14 * 4
+    assert (flags.minimal, flags.ocean_in_valid) == (0, 1)
     assert (flags.cover, flags.mask_adjacent, flags.with_ocean,
             flags.with_shadow) == (1, 0, 1, 0)

@@ -176,7 +176,7 @@ def test_scaled_kernel_plain_matches_pallas_interpret(mode, name,
                                 T(inp['fmask']), T(inp['invalid']), tcfg,
                                 compute_browse=browse,
                                 **{k: T(inp[k]) for k in extras})
-    assert sorted(got) == sorted(want)
+    assert sorted(got) == sorted([*want, *wtr_kernel.COUNTS])
     for layer in want:
         assert_same(got[layer], want[layer], layer)
 

@@ -217,8 +217,9 @@ def test_spatial_totals_ignore_the_ocean():
 def test_windowed_plain_twin(mode):
     """wtr_layers_batched with a window on CPU tensors (its plain twin):
     the plain chain of a shard's padded block, cropped to the window, ==
-    the plain chain of the whole tile, rows cut; at an inner shard and at
-    the tile's two edges."""
+    the plain chain of the whole tile, rows cut, and its coverage counts
+    those of the window's rows; at an inner shard and at the tile's two
+    edges."""
     x = spatial_inputs(72, 'int16')
     cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
     whole = wtr_kernel.wtr_layers_batched(
@@ -229,10 +230,18 @@ def test_windowed_plain_twin(mode):
             *[T(a[:, a0:a1]) for a in x['bands']], T(x['fmask'][:, a0:a1]),
             T(x['invalid'][:, a0:a1]), cfg, window=(r0 - a0, r1 - r0))
         assert sorted(got) == sorted(whole)
-        for name in whole:
+        for name in wtr_kernel.LAYERS + ('BROWSE',):
             np.testing.assert_array_equal(
                 got[name].numpy(), whole[name][:, r0:r1].numpy(),
                 err_msg=f'rows {r0}..{r1} {name}')
+        valid = ~x['invalid'][:, r0:r1]
+        cloudy = (x['fmask'][:, r0:r1] & (10 | 4 * (mode == 'mask'))) != 0
+        for name, want in (('n_valid', valid),
+                           ('n_cloud_and_valid', valid & cloudy),
+                           ('n_not_ocean', np.ones_like(valid))):
+            np.testing.assert_array_equal(got[name].numpy(),
+                                          want.sum((1, 2)),
+                                          err_msg=f'rows {r0}..{r1} {name}')
     with pytest.raises(ValueError, match='window'):
         wtr_kernel.wtr_layers_batched(
             *[T(a) for a in x['bands']], T(x['fmask']), T(x['invalid']),
