@@ -100,7 +100,15 @@ Phases, each printed on its own line; any failure exits nonzero:
    otsu masks, with the uncertainty band's population; a full-size
    single-tile CLI run with ``shadow_masking_algorithm: otsu``, SHAD
    against the host otsu chain on the host-warped DEM; one 10 m band of
-   3 x 3660 px a side ingested on the card against the numpy 3 x 3 mean;
+   3 x 3660 px a side ingested on the card against the numpy 3 x 3 mean.
+   Phase 8b: the single-pass functions at 3660^2 on the card, by
+   ``tests/test_torch_approx.py``'s rules: ``dilate_square`` and
+   ``dilate_disk`` (1, 6 and 34 px) against the CPU run bit for bit;
+   ``compute_hillshade`` against ``compute_hillshade_exact`` on the card
+   on the four terrains (the differing bytes, all inside the band) and
+   against the CPU run; ``otsu_binarize``, ``compute_otsu_shadow_layer``
+   and ``compute_opera_shadow_layer`` against the CPU run; each
+   function's ms a call;
 9. tools: the campaign instruments of ``proteus_tpu_torch/tools`` through
    their ``main`` on card 0 at full size: ``bench_cold_grid`` over 3 tiles
    on 3 distinct grids and 3 revisits of one grid (the ancillary cache
@@ -2846,6 +2854,193 @@ def phase_otsu_and_s2(torch, workdir, tile):
     return launches
 
 
+def _icv64(hist, mids):
+    """The Otsu inter-class variance in float64 of a histogram and its bin
+    midpoints."""
+    import numpy as np
+    h = hist.astype(np.float64)
+    m = mids.astype(np.float64)
+    w1 = np.cumsum(h)
+    w2 = np.cumsum(h[::-1])[::-1]
+    with np.errstate(invalid='ignore', divide='ignore'):
+        m1 = np.cumsum(h * m) / w1
+        m2 = (np.cumsum((h * m)[::-1]) / w2[::-1])[::-1]
+    return w1[:-1] * w2[1:] * (m1[:-1] - m2[1:]) ** 2
+
+
+def _hold_otsu(image, what):
+    """``otsu_binarize`` of ``image`` (a CPU tensor) on the card against
+    the port's CPU run, by tests/test_torch_approx.py's rule: the same
+    histogram and bin midpoints; the same threshold bin, or two whose
+    float64 inter-class variances lie within 1e-6 relative; only pixels
+    between the two thresholds differ. Prints a line and returns the lower
+    and the upper threshold."""
+    import numpy as np
+    from proteus_tpu_torch.ops import otsu
+    card = image.to(DEVICE)
+    got = otsu.otsu_binarize(card).cpu().numpy()
+    want = otsu.otsu_binarize(image).numpy()
+    k, mids, hist = (t.cpu().numpy() for t in otsu.threshold_bin(card))
+    kc, mids_c, hist_c = (t.numpy() for t in otsu.threshold_bin(image))
+    k, kc = int(k), int(kc)
+    if not (np.array_equal(hist, hist_c) and np.array_equal(mids, mids_c)):
+        raise AssertionError(f'otsu_binarize, {what}: the histogram or the '
+                             f'bin midpoints differ from the CPU run')
+    icv = _icv64(hist, mids)
+    if k != kc and abs(icv[k] - icv[kc]) > 1e-6 * max(icv[k], icv[kc]):
+        raise AssertionError(f'otsu_binarize, {what}: bin {k} on the card, '
+                             f'{kc} on the CPU, variances {icv[k]!r} and '
+                             f'{icv[kc]!r}')
+    lo, hi = sorted((mids[k], mids[kc]))
+    x = image.numpy()
+    differ = got != want
+    if not ((x > lo) & (x <= hi))[differ].all():
+        raise AssertionError(f'otsu_binarize, {what}: pixels outside the '
+                             f'two thresholds differ')
+    say(f'  otsu_binarize, {what}: bin {k} on the card, {kc} on the CPU '
+        f'(threshold {mids[k]!r}); {int(differ.sum())} px differ')
+    return lo, hi
+
+
+def _in_band(what, got, want, band):
+    """The number of values where ``got`` and ``want`` differ; raises if any
+    lies outside ``band``."""
+    differ = got != want
+    outside = int((differ & ~band).sum())
+    if outside:
+        raise AssertionError(f'{what}: {outside} px differ outside the band')
+    return int(differ.sum())
+
+
+def phase_single_pass(torch, workdir, tile):
+    """Phase 8b: the single-pass functions of the port at full size on the
+    card, held by tests/test_torch_approx.py's rules: the square and disk
+    dilations against the CPU run bit for bit; ``compute_hillshade`` against
+    ``compute_hillshade_exact`` on the card (the differing bytes all inside
+    the band); the Otsu, the two shadows and the hillshade against the CPU
+    run; each function's ms a call."""
+    import numpy as np
+    from proteus_tpu_torch.models.dswx import shadow as sh
+    from proteus_tpu_torch.ops import morphology
+    from proteus_tpu_torch.ops.otsu import otsu_binarize
+    from proteus_tpu_torch.testing import synthetic
+
+    say(f'== phase 8b: the single-pass shadows, hillshade and Otsu, the '
+        f'square and disk dilations at {SIZE}x{SIZE} on the card')
+    device = torch.device(DEVICE)
+    rng = np.random.default_rng(20261017)
+    field = rng.random((SIZE, SIZE)) < 2e-4
+    field[0, ::97] = field[-1, ::89] = field[::83, 0] = field[::79, -1] = True
+    field_c = torch.from_numpy(field)
+    field_d = field_c.to(device)
+    dilations = {'dilate_square': (morphology.dilate_square, ()),
+                 'dilate_disk 1 px': (morphology.dilate_disk, (1.0,)),
+                 'dilate_disk 6 px': (morphology.dilate_disk, (6.0,)),
+                 'dilate_disk 34 px': (morphology.dilate_disk, (34.0,))}
+    for name, (fn, args) in dilations.items():
+        got = fn(field_d, *args).cpu()
+        want = fn(field_c, *args)
+        if not torch.equal(got, want):
+            raise AssertionError(f'{name}: {int((got != want).sum())} px '
+                                 f'differ from the CPU run')
+        say(f'  {name}: == the CPU run bit for bit, {int(want.sum())} px set '
+            f'of {want.numel()} ({int(field.sum())} seeds)')
+
+    dems = terrains(SIZE)
+    geoms = {'smooth': (135.0, 45.0, -30.0),
+             'plateau_6000m': (277.3, 18.0, -30.0),
+             'nan_holed': (80.0, 70.0, 30.0),
+             'quadratic_sweep': (135.0, 45.0, -30.0)}
+    for name, dem in dems.items():
+        az, elev, psy = geoms[name]
+        dem_d = torch.from_numpy(dem).to(device)
+        got = sh.compute_hillshade(dem_d, az, elev, 30.0, psy)
+        exact, n_band = sh.compute_hillshade_exact(dem_d, az, elev, 30.0, psy,
+                                                   return_band=True)
+        band = sh._hillshade_comparison_space(
+            dem_d, sh._hillshade_consts_dd(az, elev), 30.0, psy)[1]
+        n = _in_band(f'compute_hillshade, {name}', got, exact, band)
+        say(f'  compute_hillshade, {name} (azimuth {az}, elevation {elev}, '
+            f'spacing 30 x {psy}): {n} of {got.numel()} bytes differ from '
+            f'compute_hillshade_exact on the card, all inside its band of '
+            f'{n_band} px')
+        del dem_d, got, exact, band
+
+    # the hillshade, the Otsu and the otsu shadow against the CPU run
+    az, elev, psy = geoms['smooth']
+    dem_c = torch.from_numpy(dems['smooth'])
+    dem_d = dem_c.to(device)
+    consts = sh._hillshade_consts_dd(az, elev)
+    hs = sh.compute_hillshade(dem_d, az, elev, 30.0, psy).cpu()
+    band = sh._hillshade_comparison_space(dem_d, consts, 30.0, psy)[1].cpu()
+    hs_c, band_c = sh._hillshade_comparison_space(dem_c, consts, 30.0, psy)
+    band |= band_c
+    n = _in_band('compute_hillshade vs the CPU', hs, hs_c, band)
+    say(f'  compute_hillshade, smooth: {n} bytes differ from the CPU run, '
+        f'all inside either band ({int(band.sum())} px)')
+    _hold_otsu(torch.from_numpy(
+        (rng.normal(120, 40, (SIZE, SIZE))
+         + 80 * (rng.random((SIZE, SIZE)) > 0.6)).astype(np.float32)),
+        'a bimodal float32 image')
+    lo, hi = _hold_otsu(hs, 'the hillshade bytes')
+    mask = sh.compute_otsu_shadow_layer(dem_d, az, elev, 30.0, psy).cpu()
+    mask_c = otsu_binarize(hs_c)
+    between = (hs > lo) & (hs <= hi)
+    n = _in_band('compute_otsu_shadow_layer vs the CPU', mask, mask_c,
+                 band | between)
+    say(f'  compute_otsu_shadow_layer, smooth: {n} px differ from the CPU '
+        f'run (allowed: the bytes\' band or between the thresholds); '
+        f'not-shadow share {float(mask.float().mean()):.4f}')
+    del hs_c, band_c, band, hs, mask, mask_c, between
+
+    # the sun-local-incidence shadow at the main path's angles, on the
+    # smooth terrain and the synthetic tile's DEM
+    md = synthetic.HLS_METADATA
+    angles = (float(md['MEAN_SUN_AZIMUTH_ANGLE']),
+              90 - float(md['MEAN_SUN_ZENITH_ANGLE']), -5.0, 40.0)
+    tile_dem = np.ascontiguousarray(tile['dem_host'][50:-50, 50:-50])
+    for name, dem in (('smooth', dems['smooth']), ('the tile\'s DEM',
+                                                   tile_dem)):
+        dem_c = torch.from_numpy(dem)
+        got = sh.compute_opera_shadow_layer(dem_c.to(device), *angles).cpu()
+        want = sh.compute_opera_shadow_layer(dem_c, *angles)
+        band = sh._exact_comparison_space(dem_c, angles, 30, 30)[3]
+        n = _in_band(f'compute_opera_shadow_layer, {name}', got, want, band)
+        if n >= 1e-4 * got.numel():
+            raise AssertionError(f'compute_opera_shadow_layer, {name}: {n} '
+                                 f'px differ')
+        say(f'  compute_opera_shadow_layer, {name}: {n} px differ from the '
+            f'CPU run, all inside the exact variant\'s band '
+            f'({int(band.sum())} px); not-shadow share '
+            f'{float(got.float().mean()):.4f}')
+
+    # ms a call, the card held busy
+    hs_d = sh.compute_hillshade(dem_d, az, elev, 30.0, psy)
+    calls = {name: (lambda fn=fn, args=args: fn(field_d, *args))
+             for name, (fn, args) in dilations.items()}
+    calls.update({
+        'otsu_binarize': lambda: otsu_binarize(hs_d),
+        'compute_opera_shadow_layer':
+            lambda: sh.compute_opera_shadow_layer(dem_d, *angles),
+        'compute_hillshade':
+            lambda: sh.compute_hillshade(dem_d, az, elev, 30.0, psy),
+        'compute_otsu_shadow_layer':
+            lambda: sh.compute_otsu_shadow_layer(dem_d, az, elev, 30.0, psy),
+        # the exact variants the product runs, for comparison
+        'compute_opera_shadow_layer_exact':
+            lambda: sh.compute_opera_shadow_layer_exact(dem_d, *angles),
+        'compute_hillshade_exact':
+            lambda: sh.compute_hillshade_exact(dem_d, az, elev, 30.0, psy),
+        'compute_otsu_shadow_layer_exact':
+            lambda: sh.compute_otsu_shadow_layer_exact(dem_d, az, elev, 30.0,
+                                                       psy)})
+    ms = {name: _time_ms(torch, fn, [()], 3, cycles=3)
+          for name, fn in calls.items()}
+    say(json.dumps({'phase': '8b', 'size': SIZE, 'card': nvidia_smi_line(),
+                    'ms_a_call': ms}))
+    return {}
+
+
 def phase_inexact_run(torch, workdir, tile):
     """The default single-tile run on the card with thresholds that are no
     exact rationals (run p): K1 launches as in run (c), and the layers
@@ -3134,7 +3329,8 @@ def main(argv=None):
             launches[name] = launches.get(name, 0) + n
         phase_hosts(torch, workdir, tile, ctx)
         phase_step_sweep(torch, tile, workdir)
-        for phase in (phase_profile, phase_otsu_and_s2, phase_tools):
+        for phase in (phase_profile, phase_otsu_and_s2, phase_single_pass,
+                      phase_tools):
             for name, n in phase(torch, workdir, tile).items():
                 launches[name] = launches.get(name, 0) + n
         if torch.cuda.device_count() > 1:

@@ -1,8 +1,9 @@
 """Terrain shadow layer (SHAD) from a pre-warped DEM: the exact
-'sun_local_inc_angle' algorithm and the exact 'otsu' algorithm.
+'sun_local_inc_angle' algorithm and the exact 'otsu' algorithm, and the
+single-pass float32 variants of both that the exact ones bracket.
 
-Port of ``proteus_tpu/models/dswx/shadow.py:53-64, 111-358`` and, for
-'otsu', ``:383-712``. For 'sun_local_inc_angle' the device
+Port of ``proteus_tpu/models/dswx/shadow.py``: ``:53-358`` and, for
+'otsu', ``:383-734``. For 'sun_local_inc_angle' the device
 decides each pixel in comparison space (the cosine of the incidence angle
 against a float64-bisected boundary; likewise the tangent of the
 directional slope) and flags an epsilon band of near-boundary pixels; the
@@ -23,6 +24,12 @@ the threshold is chosen on the host in float64 and the decision is an
 integer byte comparison. None of this may be wrapped in ``torch.compile``
 (a fused multiply-add breaks the error-free transforms).
 
+``compute_opera_shadow_layer``, ``compute_hillshade`` and
+``compute_otsu_shadow_layer`` are the reference's single-pass float32
+variants: the decisions taken on the device with no host resolution of the
+band, and the Otsu threshold of ``ops/otsu.py``. The product runs the
+exact variants.
+
 The float64 host helpers below are copied from ``proteus_tpu`` because
 their module imports ``jax``; each names its source lines.
 """
@@ -34,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from proteus_tpu_torch.core.eft import two_prod, two_sum
+from proteus_tpu_torch.ops.otsu import otsu_binarize
 
 # copied from proteus_tpu/models/dswx/shadow.py:111-115
 _EPS_X = 1e-5          # band half-width in cos(incidence) space
@@ -49,6 +57,67 @@ def _np_gradient_axis(h, axis):
     first = h.narrow(axis, 1, 1) - h.narrow(axis, 0, 1)
     last = h.narrow(axis, n - 1, 1) - h.narrow(axis, n - 2, 1)
     return torch.cat([first, interior, last], dim=axis)
+
+
+def _on(value, device):
+    """``value`` as a float32 tensor on ``device``. A host scalar becomes a
+    0-d tensor of its float32 rounding, filled on the device (no copy from
+    the host, so no wait for the stream)."""
+    if np.isscalar(value):
+        return torch.full((), np.float32(value), dtype=torch.float32,
+                          device=device)
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
+def _radians32(angle, device):
+    """The angle in radians as float32 on ``device`` (shadow.py:74-78): a
+    host scalar converted in float64 and rounded once, an array or tensor
+    rounded to float32 and then converted."""
+    if np.isscalar(angle):
+        return _on(np.radians(angle), device)
+    return torch.deg2rad(_on(angle, device))
+
+
+def compute_opera_shadow_layer(dem, sun_azimuth_angle, sun_elevation_angle,
+                               min_slope_angle, max_sun_local_inc_angle,
+                               pixel_spacing_x=30, pixel_spacing_y=30):
+    """Shadow mask (True: not shadow) from the sun geometry, in one float32
+    pass on ``dem``'s device (shadow.py:67-104). The angles are host scalars
+    or tensors.
+
+    A pixel within a few float32 ULPs of either threshold may differ from
+    the reference's float64 chain (about 1e-7 of a tile), and from JAX's
+    float32 chain where the two libraries' arccos, arctan, sin and cos
+    round differently; ``compute_opera_shadow_layer_exact`` decides those
+    pixels on the host."""
+    device = dem.device
+    sun_azimuth = _radians32(sun_azimuth_angle, device)
+    sun_zenith = _radians32(90.0 - sun_elevation_angle, device)
+
+    # target-to-sun unit vector (x, y, z)
+    tsv_x = torch.sin(sun_azimuth) * torch.sin(sun_zenith)
+    tsv_y = torch.cos(sun_azimuth) * torch.sin(sun_zenith)
+    tsv_z = torch.cos(sun_zenith)
+
+    gy = _np_gradient_axis(dem, 0)
+    gx = _np_gradient_axis(dem, 1)
+
+    # terrain normal N = [-dh/dx, -dh/dy, 1] with respect to the DEM grid;
+    # the row gradient is divided by -abs(pixel_spacing_y) (north up)
+    tn_x = -gx / _on(pixel_spacing_x, device)
+    tn_y = -gy / _on(-abs(pixel_spacing_y), device)
+
+    normalization = _sqrt(tn_x * tn_x + tn_y * tn_y + 1.0)
+    cos_inc = (tn_x * tsv_x + tn_y * tsv_y + tsv_z) / normalization
+    sun_inc_angle_degrees = torch.rad2deg(torch.arccos(cos_inc))
+
+    directional_slope_angle = torch.rad2deg(torch.arctan(
+        tn_x * torch.sin(sun_azimuth) + tn_y * torch.cos(sun_azimuth)))
+
+    backslope_mask = directional_slope_angle <= _on(min_slope_angle, device)
+    low_sun_inc_angle_mask = (sun_inc_angle_degrees
+                              <= _on(max_sun_local_inc_angle, device))
+    return low_sun_inc_angle_mask | (~backslope_mask)
 
 
 # copied from proteus_tpu/models/dswx/shadow.py:118-161
@@ -181,6 +250,22 @@ def _shadow_comparison_space(dem, tsv, x_crit32, t_crit32, eps_x, eps_t,
     return shadow, gx, gy, uncertain
 
 
+def _exact_comparison_space(dem32, angles, psx, psy):
+    """``_shadow_comparison_space`` of a float32 DEM at the exact variant's
+    float64 boundaries, sun vector and bands for ``angles`` (azimuth,
+    elevation, min slope, max incidence): (shadow, gx, gy, uncertain)."""
+    x_crit, t_crit = _decision_boundaries(*angles)
+
+    def f32(value):
+        return torch.tensor(np.float32(value), device=dem32.device)
+
+    tsv32 = tuple(f32(v) for v in _sun_vector_f64(*angles[:2]))
+    eps_t = np.float32(_EPS_T_REL * (1.0 + min(abs(t_crit), 1e30)))
+    return _shadow_comparison_space(
+        dem32, tsv32, f32(x_crit), f32(t_crit), f32(_EPS_X), f32(eps_t),
+        psx=psx, psy=psy)
+
+
 # copied from proteus_tpu/models/dswx/shadow.py:236-279
 def _host_decide_f64(tn_x32, tn_y32, sun_azimuth_angle, sun_elevation_angle,
                      min_slope_angle, max_sun_local_inc_angle):
@@ -245,17 +330,8 @@ def compute_opera_shadow_layer_exact(dem, sun_azimuth_angle,
                                  pixel_spacing_x, pixel_spacing_y)
         return torch.as_tensor(out, device=dem.device)
 
-    x_crit, t_crit = _decision_boundaries(*angles)
-
-    def f32(value):
-        return torch.tensor(np.float32(value), device=dem.device)
-
-    tsv32 = tuple(f32(v) for v in _sun_vector_f64(sun_azimuth_angle,
-                                                  sun_elevation_angle))
-    eps_t = np.float32(_EPS_T_REL * (1.0 + min(abs(t_crit), 1e30)))
-    shadow, gx, gy, uncertain = _shadow_comparison_space(
-        dem.to(torch.float32), tsv32, f32(x_crit), f32(t_crit),
-        f32(_EPS_X), f32(eps_t), psx=pixel_spacing_x, psy=pixel_spacing_y)
+    shadow, gx, gy, uncertain = _exact_comparison_space(
+        dem.to(torch.float32), angles, pixel_spacing_x, pixel_spacing_y)
 
     # torch.nonzero takes no static size (JAX's flatnonzero does, hence its
     # cap on the band and a whole-tile host fallback): any band size works
@@ -591,3 +667,27 @@ def compute_otsu_shadow_layer_exact(dem, sun_azimuth_angle,
     if cut >= 256:
         return torch.zeros(hs.shape, dtype=torch.bool, device=hs.device)
     return hs >= cut
+
+
+def compute_hillshade(dem, sun_azimuth_angle, sun_elevation_angle,
+                      pixel_spacing_x=30.0, pixel_spacing_y=-30.0):
+    """GDAL gdaldem hillshade (Horn kernel) as uint8 bytes on ``dem``'s
+    device: the border ring 0 (no computeEdges), the interior 1..255
+    (shadow.py:715-725). The single-pass variant: the double-double
+    float32 bytes with no host resolution of the uncertainty band, so a
+    byte may differ from the float64 oracle where that band is set
+    (``compute_hillshade_exact`` decides those pixels on the host)."""
+    byte, _ = _hillshade_comparison_space(
+        dem.to(torch.float32),
+        _hillshade_consts_dd(sun_azimuth_angle, sun_elevation_angle),
+        float(pixel_spacing_x), float(pixel_spacing_y))
+    return byte
+
+
+def compute_otsu_shadow_layer(dem, sun_azimuth_angle, sun_elevation_angle,
+                              pixel_spacing_x=30.0, pixel_spacing_y=-30.0):
+    """Hillshade and Otsu binarization (True: not shadow), the single-pass
+    float32 variant, all of it on ``dem``'s device (shadow.py:728-734)."""
+    hs = compute_hillshade(dem, sun_azimuth_angle, sun_elevation_angle,
+                           pixel_spacing_x, pixel_spacing_y)
+    return otsu_binarize(hs)
