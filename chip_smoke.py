@@ -2714,8 +2714,8 @@ def phase_profile(torch, workdir, tile):
     for name, seconds, count in busy['top']:
         say(f'    {seconds * 1e3:9.4f} ms  {count:4d} x  {name[:100]}')
     whole = device_busy_share(traces[0])
-    say(f'  whole trace (device chain + device->host transfer, first to '
-        f'last device operation): busy {whole["busy_s"] * 1e3:.3f} ms of '
+    say(f'  whole trace (the product run, first to last device '
+        f'operation): busy {whole["busy_s"] * 1e3:.3f} ms of '
         f'{whole["window_s"] * 1e3:.3f} ms ({whole["busy_share"]:.2%})')
     return launches
 

@@ -6,7 +6,8 @@ Usage: python -m proteus_tpu_torch.cli.dswx_hls <runconfig.yaml>
 The same arguments as ``proteus_tpu.cli.dswx_hls`` (whose parser and
 runconfig merge it reuses). The device comes from
 ``PROTEUS_TPU_TORCH_DEVICE`` (default ``cuda``); asking for CUDA on a
-machine without it is an error, never a silent run on the CPU.
+machine without it is an error, never a silent run on the CPU. A run is
+the tracer's span ``sas.cli``, around the product run's ``sas.product``.
 """
 
 import logging
@@ -16,6 +17,7 @@ from proteus_tpu_torch.cli.args import get_dswx_hls_cli_parser
 from proteus_tpu_torch.config.runconfig import parse_runconfig_file
 from proteus_tpu_torch.device import resolve_device
 from proteus_tpu_torch.runtime.logging_util import create_logger
+from proteus_tpu_torch.runtime.profiling import TRACER
 
 logger = logging.getLogger('dswx_hls')
 
@@ -27,6 +29,7 @@ def _is_runconfig(path):
     return os.path.splitext(path)[1].lower() in _RUNCONFIG_SUFFIXES
 
 
+@TRACER.traced('sas.cli')
 def main(argv=None):
     device = resolve_device(os.environ.get('PROTEUS_TPU_TORCH_DEVICE',
                                            'cuda'))

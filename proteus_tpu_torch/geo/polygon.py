@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from scipy.ndimage import distance_transform_edt
 
+from proteus_tpu_torch.device import to_device
 from proteus_tpu_torch.geo.crs import CRS, transform_points
 from proteus_tpu_torch.io.shapefile import read_shapefile
 from proteus_tpu_torch.ops.morphology import dilate_ellipse
@@ -230,7 +231,7 @@ def create_ocean_mask(shapefile, margin_km, scratch_dir, geotransform,
                             out=land)
 
     if device is not None:
-        mask = torch.from_numpy(land).to(device)
+        mask = to_device(land, device, 'ocean_mask')
         if margin_m > 0 and land.any():
             mask = dilate_ellipse(mask, margin_m, dy, dx)
         return mask

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from proteus_tpu_torch.core.eft import f32, two_prod, two_sum
+from proteus_tpu_torch.device import to_device, to_host
 from proteus_tpu_torch.geo.crs import CRS, transform_points
 from proteus_tpu_torch.io.tiff import TiffReader
 from proteus_tpu_torch.ops import warp_kernel
@@ -748,7 +749,7 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
                            width, resample_algorithm='average',
                            margin_in_pixels=margin_in_pixels,
                            grid_spacing=grid_spacing, dtype=dtype)
-        return torch.as_tensor(out, device=device)
+        return to_device(out, device, 'warp_result')
 
     m = margin_in_pixels
     x0, dx, _, y0, _, dy = geotransform
@@ -791,7 +792,7 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
         sx0, sdx, _, sy0, _, sdy = src.gt
         u_hi, u_lo = _dd_split((tx.sx - sx0) / sdx - c0)
         v_hi, v_lo = _dd_split((tx.sy - sy0) / sdy - r0)
-        lat = tuple(torch.as_tensor(a, device=device)
+        lat = tuple(to_device(a, device, 'warp_lattice')
                     for a in (u_hi, u_lo, v_hi, v_lo))
         wraps = src.wraps and c0 == 0 and ww == src.width
 
@@ -807,9 +808,9 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
             data.astype(np.float32)
         all_valid = valid is None or bool(valid.all())
         out, amb = device_resample(
-            torch.as_tensor(np.ascontiguousarray(kernel_input),
-                            device=device),
-            None if all_valid else torch.as_tensor(valid, device=device),
+            to_device(np.ascontiguousarray(kernel_input), device,
+                      'warp_source'),
+            None if all_valid else to_device(valid, device, 'warp_source'),
             lat, grid_spacing, out_h, out_w, resample_algorithm,
             float(fill) if (is_float_fill or
                             resample_algorithm != 'nearest') else fill,
@@ -827,7 +828,7 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
         if flat.numel():
             # float64 host re-evaluation of the ambiguous pixels,
             # replicating warp_to_grid's chunk pipeline (warp.py:911-942)
-            flat_np = flat.cpu().numpy()
+            flat_np = to_host(flat, 'warp_ambiguous')
             ii = (flat_np // out_w).astype(np.float64)
             jj = (flat_np % out_w).astype(np.float64)
             hsx, hsy = tx(ii, jj)
@@ -847,7 +848,8 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
                 res = np.clip(np.rint(res), np.iinfo(out_dtype).min,
                               np.iinfo(out_dtype).max)
             out = out.reshape(-1)
-            out[flat] = torch.as_tensor(res, device=device).to(out.dtype)
+            out[flat] = to_device(res, device, 'warp_ambiguous') \
+                .to(out.dtype)
             out = out.reshape(out_h, out_w)
         return out.to(torch_dtype(out_dtype))
     finally:

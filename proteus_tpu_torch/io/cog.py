@@ -25,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from proteus_tpu_torch.io import codecs, tiff
+from proteus_tpu_torch.runtime.profiling import COUNTERS, TRACER
 from proteus_tpu_torch.version import VERSION
 
 DEFAULT_OVERVIEW_LEVELS = (4, 16, 64, 128)
@@ -383,6 +384,8 @@ class _PayloadCache:
     def get(self, key):
         with self._lock:
             plans = self._entries.get(key)
+            COUNTERS.add('cog_payload.miss' if plans is None
+                         else 'cog_payload.hit')
             if plans is None:
                 return None
             self._order.remove(key)
@@ -440,6 +443,7 @@ def _pack_tag(tag, typ, values, extra_area, extra_base):
     return struct.pack('<HHII', tag, typ, n, offset)
 
 
+@TRACER.traced('cog.encode')
 def write_cog(path, array, geotransform=None, epsg=None, nodata=None,
               metadata=None, band_descriptions=None, color_map=None,
               overview_levels=DEFAULT_OVERVIEW_LEVELS,
@@ -454,6 +458,8 @@ def write_cog(path, array, geotransform=None, epsg=None, nodata=None,
     PAYLOAD_CACHE across writes of identical pixels (tags — metadata,
     geo keys, descriptions — are rebuilt per file). The caller owns key
     correctness: the same key MUST imply the same array bytes.
+
+    The write is the tracer's span ``cog.encode``.
     """
     array = np.asarray(array)
     if array.ndim == 2:

@@ -83,14 +83,15 @@ def _resample_raw_band(image, fill_value, src_res, geotransform, device):
     its geotransform."""
     import torch
 
+    from proteus_tpu_torch.device import to_device, to_host
     from proteus_tpu_torch.ops.resample import resample_to_30m
     native_invalid = image == fill_value
-    on_device = torch.from_numpy(np.where(native_invalid, 0, image)) \
-        .to(device)
-    invalid_d = torch.from_numpy(native_invalid).to(device)
-    mean = resample_to_30m(on_device, src_res).cpu().numpy()
-    fill_frac = resample_to_30m(invalid_d.to(torch.float32),
-                                src_res).cpu().numpy()
+    on_device = to_device(np.where(native_invalid, 0, image), device,
+                          'raw_band')
+    invalid_d = to_device(native_invalid, device, 'raw_band')
+    mean = to_host(resample_to_30m(on_device, src_res), 'raw_band')
+    fill_frac = to_host(resample_to_30m(invalid_d.to(torch.float32),
+                                        src_res), 'raw_band')
     out = np.rint(mean).astype(image.dtype)
     out[fill_frac > 0] = image.dtype.type(fill_value)
     sx = 1.0 if geotransform[1] > 0 else -1.0

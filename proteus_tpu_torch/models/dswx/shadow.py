@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from proteus_tpu_torch.core.eft import two_prod, two_sum
+from proteus_tpu_torch.device import to_device, to_host
 from proteus_tpu_torch.ops.otsu import otsu_binarize
 
 # copied from proteus_tpu/models/dswx/shadow.py:111-115
@@ -326,9 +327,9 @@ def compute_opera_shadow_layer_exact(dem, sun_azimuth_angle,
     angles = (sun_azimuth_angle, sun_elevation_angle, min_slope_angle,
               max_sun_local_inc_angle)
     if dem.dtype == torch.float64:
-        out = _host_shadow_exact(dem.cpu().numpy(), *angles,
+        out = _host_shadow_exact(to_host(dem, 'shadow_host'), *angles,
                                  pixel_spacing_x, pixel_spacing_y)
-        return torch.as_tensor(out, device=dem.device)
+        return to_device(out, dem.device, 'shadow_host')
 
     shadow, gx, gy, uncertain = _exact_comparison_space(
         dem.to(torch.float32), angles, pixel_spacing_x, pixel_spacing_y)
@@ -339,13 +340,13 @@ def compute_opera_shadow_layer_exact(dem, sun_azimuth_angle,
     if sel.numel():
         # terrain normals by host IEEE division (reference semantics) from
         # the bit-exact device gradients
-        flat_gx = gx.reshape(-1)[sel].cpu().numpy()
-        flat_gy = gy.reshape(-1)[sel].cpu().numpy()
+        flat_gx = to_host(gx.reshape(-1)[sel], 'shadow_uncertain')
+        flat_gy = to_host(gy.reshape(-1)[sel], 'shadow_uncertain')
         decided = _host_decide_f64(-flat_gx / pixel_spacing_x,
                                    -flat_gy / -abs(pixel_spacing_y),
                                    *angles)
         shadow = shadow.reshape(-1)
-        shadow[sel] = torch.as_tensor(decided, device=dem.device)
+        shadow[sel] = to_device(decided, dem.device, 'shadow_decided')
         shadow = shadow.reshape(dem.shape)
     return shadow
 
@@ -602,15 +603,16 @@ def compute_hillshade_exact(dem, sun_azimuth_angle, sun_elevation_angle,
     n_band = int(sel.numel())
     if n_band:
         # the flagged pixels' 3x3 float32 windows, one small fetch
-        vals = torch.stack([wa.reshape(-1)[sel] for wa in
-                            _windows(dem32).values()]).cpu().numpy()
+        vals = to_host(torch.stack([wa.reshape(-1)[sel] for wa in
+                                    _windows(dem32).values()]),
+                       'shadow_uncertain')
         wsel = {(dy, dx): vals[dy * 3 + dx]
                 for dy in (0, 1, 2) for dx in (0, 1, 2)}
         decided = _hillshade_bytes_f64(wsel, sun_azimuth_angle,
                                        sun_elevation_angle,
                                        pixel_spacing_x, pixel_spacing_y)
         byte = byte.reshape(-1)
-        byte[sel] = torch.as_tensor(decided, device=dem.device)
+        byte[sel] = to_device(decided, dem.device, 'shadow_decided')
         byte = byte.reshape(dem.shape)
     return (byte, n_band) if return_band else byte
 

@@ -8,7 +8,10 @@ installed copy, which has no checkout around it, builds into
 the source, the headers and the flags, so a changed source is rebuilt and
 an unchanged one is reused. The library is loaded with ``ctypes``; it
 includes no PyTorch header, so a build takes seconds. Nothing here runs at
-import time.
+import time. ``runtime.profiling.COUNTERS`` counts the libraries loaded
+(``kernels.loaded``) and built (``kernels.built``, with
+``kernels.build_ms``), so a build inside a measured window shows; each
+load is the tracer's span ``kernel.build``.
 
 Usage (on a machine with nvcc): python -m proteus_tpu_torch.ops.build
 """
@@ -21,6 +24,8 @@ import shutil
 import subprocess
 import sys
 import time
+
+from proteus_tpu_torch.runtime.profiling import COUNTERS, TRACER
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 _CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -63,6 +68,17 @@ def build(name):
     """Compile ``csrc/<name>.cu`` (if not built yet) and load it."""
     if name in _LOADED:
         return _LOADED[name]
+    with TRACER.span('kernel.build'):
+        built = _build(name)
+    COUNTERS.add('kernels.loaded')
+    if built.seconds:
+        COUNTERS.add('kernels.built')
+        COUNTERS.add('kernels.build_ms', round(built.seconds * 1e3))
+    _LOADED[name] = built
+    return built
+
+
+def _build(name):
     src = os.path.join(CSRC, f'{name}.cu')
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     # the source and the headers beside it that it may include
@@ -88,9 +104,7 @@ def build(name):
         os.replace(tmp, lib_path)
     with open(log_path) as fh:
         log = fh.read()
-    built = Built(lib_path, seconds, log, ctypes.CDLL(lib_path))
-    _LOADED[name] = built
-    return built
+    return Built(lib_path, seconds, log, ctypes.CDLL(lib_path))
 
 
 if __name__ == '__main__':

@@ -24,7 +24,7 @@ the writer pool derives the dependent layers on the host
 ``_pack_minimal_device``, is ``ops.wtr_kernel.pack_minimal`` here.
 """
 
-import contextlib
+import functools
 import json
 import logging
 import os
@@ -37,54 +37,17 @@ import numpy as np
 import torch
 
 from proteus_tpu_torch.core import constants as C
+from proteus_tpu_torch.device import to_device, to_host
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops.wtr_kernel import BANDS, wtr_layers_batched
 from proteus_tpu_torch.parallel.mesh import (make_tile_mesh,
                                              make_tile_space_mesh)
+# the stage table lives with the tracer; its name here is the same object
+from proteus_tpu_torch.runtime.profiling import (COUNTERS, STAGE_TIMES,
+                                                TRACER, Counters)
 
 logger = logging.getLogger('dswx_hls')
 
-class StageTimes:
-    """Cumulative wall-clock per pipeline stage (thread-safe).
-
-    Enabled by PROTEUS_TPU_STAGE_TIMES=1; CampaignRunner.run() returns
-    the table under stats['stage_seconds']. Stage seconds are summed
-    across pool threads, so they measure CORE-seconds of occupancy (plus
-    in-stage waiting, e.g. d2h transfer time inside 'd2h_*'), not
-    wall-clock.
-    """
-
-    def __init__(self):
-        self.enabled = os.environ.get('PROTEUS_TPU_STAGE_TIMES') == '1'
-        self._lock = threading.Lock()
-        self.totals = {}
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        if not self.enabled:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                cur = self.totals.setdefault(name, [0.0, 0])
-                cur[0] += dt
-                cur[1] += 1
-
-    def reset(self):
-        with self._lock:
-            self.totals = {}
-
-    def table(self):
-        return {k: {'seconds': round(v[0], 2), 'calls': v[1]}
-                for k, v in sorted(self.totals.items(),
-                                   key=lambda kv: -kv[1][0])}
-
-
-STAGE_TIMES = StageTimes()
 
 def pack_bits_device(x):
     """(h, w) 0/1 uint8 -> (h, ceil(w/8)) uint8 bit-packing on the
@@ -94,8 +57,9 @@ def pack_bits_device(x):
     pad = (-w) % 8
     xp = torch.nn.functional.pad(x.to(torch.int32), (0, pad))
     xp = xp.reshape(h, -1, 8)
-    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32,
-                           device=x.device)
+    weights = to_device(torch.tensor([1, 2, 4, 8, 16, 32, 64, 128],
+                                     dtype=torch.int32), x.device,
+                        'pack_bits')
     return (xp * weights).sum(-1).to(torch.uint8)
 
 
@@ -104,12 +68,12 @@ def _split(arg, devices):
     is taken as the shares already; an array or tensor is cut into
     len(devices) equal parts, each moved to its device."""
     if isinstance(arg, (list, tuple)):
-        return [a.to(d) for a, d in zip(arg, devices)]
+        return [to_device(a, d, 'split') for a, d in zip(arg, devices)]
     t = torch.as_tensor(arg)
     if t.shape[0] % len(devices):
         raise ValueError(f'batch of {t.shape[0]} does not split over '
                          f'{len(devices)} devices')
-    return [s.to(d).contiguous()
+    return [to_device(s, d, 'split').contiguous()
             for s, d in zip(t.chunk(len(devices)), devices)]
 
 
@@ -168,13 +132,16 @@ def make_campaign_step(config: DswxChainConfig, devices,
         if len(args) != n_in:
             raise ValueError(f'campaign step: {len(args)} inputs, expected '
                              f'{n_in}')
-        shares = [_split(a, devices) for a in args]
-        outs = [local_step(*[s[k] for s in shares])
-                for k in range(len(devices))]
+        with TRACER.span('campaign.step.launch'):
+            shares = [_split(a, devices) for a in args]
+            outs = [local_step(*[s[k] for s in shares])
+                    for k in range(len(devices))]
         out = {name: [t for o in outs for t in o[name]] for name in outs[0]}
         # a device's two totals in one read, which waits for its launches
-        sums = [torch.stack([o['n_valid'].sum(), o['n_cloud_and_valid'].sum()])
-                .tolist() for o in outs]
+        with TRACER.span('campaign.step.wait'):
+            sums = [torch.stack([o['n_valid'].sum(),
+                                 o['n_cloud_and_valid'].sum()]).tolist()
+                    for o in outs]
         totals = {
             'n_valid_total': sum(v for v, _ in sums),
             'n_cloud_and_valid_total': sum(c for _, c in sums),
@@ -202,9 +169,10 @@ def _tile_rows(arg, tiles, rows, device):
     tensor, or a list of per-tile (H, W) arrays or tensors; a tile that
     lies on another card is copied from there."""
     if isinstance(arg, (list, tuple)):
-        return torch.stack([torch.as_tensor(a)[rows].to(device)
-                            for a in arg[tiles]])
-    return torch.as_tensor(arg)[tiles, rows].to(device).contiguous()
+        return torch.stack([to_device(torch.as_tensor(a)[rows], device,
+                                      'spatial_rows') for a in arg[tiles]])
+    return to_device(torch.as_tensor(arg)[tiles, rows], device,
+                     'spatial_rows').contiguous()
 
 
 def make_spatial_campaign_step(config: DswxChainConfig, mesh,
@@ -268,39 +236,42 @@ def make_spatial_campaign_step(config: DswxChainConfig, mesh,
         per_row = b // n_tile
         images = list(args[:8]) + list(args[10 if device_scale else 8:])
         out, counts = {}, {}
-        for t, row in enumerate(mesh):
-            tiles = slice(t * per_row, (t + 1) * per_row)
-            for j, dev in enumerate(row):
-                r0 = j * hl
-                a0, a1 = max(0, r0 - reach), min(h, r0 + hl + reach)
-                block = [_tile_rows(a, tiles, slice(a0, a1), dev)
-                         for a in images]
-                b_, g, r, n, s1, s2, fm, inv, *extras = block
-                it = iter(extras)
-                kw = dict(ocean=next(it) if with_ocean else None,
-                          shadow=next(it) if with_shadow else None,
-                          landcover=next(it) if with_landcover else None)
-                if device_scale:
-                    kw['scales'], kw['offsets'] = (
-                        torch.as_tensor(v)[tiles].to(dev).contiguous()
-                        for v in args[8:10])
-                # the shard's layers and the counts of its own rows, valid
-                # pixels without the ocean term (campaign.py:441-452)
-                layers = wtr_layers_batched(
-                    b_, g, r, n, s1, s2, fm, inv, config,
-                    compute_browse=compute_browse, minimal=False,
-                    window=(r0 - a0, hl), ocean_in_valid=False, **kw)
-                counts.setdefault(dev, []).append(torch.stack(
-                    [layers.pop('n_valid').sum(),
-                     layers.pop('n_cloud_and_valid').sum()]))
-                del layers['n_not_ocean']
-                for name, v in layers.items():
-                    pieces = out.setdefault(name, [[] for _ in range(b)])
-                    for i in range(per_row):
-                        pieces[t * per_row + i].append(v[i])
+        with TRACER.span('campaign.step.launch'):
+            for t, row in enumerate(mesh):
+                tiles = slice(t * per_row, (t + 1) * per_row)
+                for j, dev in enumerate(row):
+                    r0 = j * hl
+                    a0, a1 = max(0, r0 - reach), min(h, r0 + hl + reach)
+                    block = [_tile_rows(a, tiles, slice(a0, a1), dev)
+                             for a in images]
+                    b_, g, r, n, s1, s2, fm, inv, *extras = block
+                    it = iter(extras)
+                    kw = dict(ocean=next(it) if with_ocean else None,
+                              shadow=next(it) if with_shadow else None,
+                              landcover=next(it) if with_landcover else None)
+                    if device_scale:
+                        kw['scales'], kw['offsets'] = (
+                            to_device(torch.as_tensor(v)[tiles], dev,
+                                      'spatial_rows').contiguous()
+                            for v in args[8:10])
+                    # the shard's layers and the counts of its own rows, valid
+                    # pixels without the ocean term (campaign.py:441-452)
+                    layers = wtr_layers_batched(
+                        b_, g, r, n, s1, s2, fm, inv, config,
+                        compute_browse=compute_browse, minimal=False,
+                        window=(r0 - a0, hl), ocean_in_valid=False, **kw)
+                    counts.setdefault(dev, []).append(torch.stack(
+                        [layers.pop('n_valid').sum(),
+                         layers.pop('n_cloud_and_valid').sum()]))
+                    del layers['n_not_ocean']
+                    for name, v in layers.items():
+                        pieces = out.setdefault(name, [[] for _ in range(b)])
+                        for i in range(per_row):
+                            pieces[t * per_row + i].append(v[i])
         # one read of a device's totals, which waits for its shards'
         # launches
-        sums = [torch.stack(c).sum(0).tolist() for c in counts.values()]
+        with TRACER.span('campaign.step.wait'):
+            sums = [torch.stack(c).sum(0).tolist() for c in counts.values()]
         totals = {
             'n_valid_total': sum(v for v, _ in sums),
             'n_cloud_and_valid_total': sum(c for _, c in sums),
@@ -360,6 +331,12 @@ class _AncillaryCache:
     computation instead of duplicating it. Capacity is keys, not bytes
     (at 3660^2 a grid's DEM with its margin, shadow and LAND are about 85
     MB a device); PROTEUS_TPU_ANC_CACHE=0 disables.
+
+    By the key's kind (its first field), ``COUNTERS`` counts each value's
+    hits, misses (computations) and waits on another thread's
+    computation as ``anc.<kind>.hit``, ``.miss`` and ``.wait``, and the
+    tracer's ``anc.<kind>.compute`` and ``anc.<kind>.wait`` spans time
+    the last two.
     """
 
     def __init__(self, max_entries=None):
@@ -382,18 +359,24 @@ class _AncillaryCache:
         ``device``, the value on that device: a value computed on another
         one is copied by ``move(value, device)`` (default: ``.to(device)``
         of each tensor of a tensor or tuple)."""
+        kind = key[0] if isinstance(key, tuple) else str(key)
         if self.max_entries <= 0:
-            return compute()
-        ent = self._flight(self._entries, key, compute, lru=True)
+            COUNTERS.add(f'anc.{kind}.miss')
+            with TRACER.span(f'anc.{kind}.compute'):
+                return compute()
+        ent = self._flight(self._entries, key, compute, kind=kind)
         value = ent['value']
         if device is None or _device_of(value) == torch.device(device):
             return value
         return self._flight(ent['copies'], str(device), lambda: (
             move or _move)(value, device))['value']
 
-    def _flight(self, table, key, compute, lru=False):
+    def _flight(self, table, key, compute, kind=None):
         """The entry of ``key`` in ``table``, computed once: concurrent
-        callers wait for the first one's ``compute()``."""
+        callers wait for the first one's ``compute()``. ``kind`` names a
+        value of the cache's own table (counted; its key kept in order),
+        None a copy (timed as ``anc.copy``)."""
+        lru = kind is not None
         with self._lock:
             ent = table.get(key)
             owner = ent is None
@@ -407,13 +390,21 @@ class _AncillaryCache:
                         old = self._order.pop(0)
                         if old != key:
                             self._entries.pop(old, None)
+            if lru:
+                outcome = 'miss' if owner else \
+                    'hit' if ent['event'].is_set() else 'wait'
+                COUNTERS.add(f'anc.{kind}.{outcome}')
+        span = f'anc.{kind or "copy"}'
         if not owner:
-            ent['event'].wait()
+            if not ent['event'].is_set():
+                with TRACER.span(f'{span}.wait'):
+                    ent['event'].wait()
             if ent['error'] is not None:
                 raise ent['error']
             return ent
         try:
-            ent['value'] = compute()
+            with TRACER.span(f'{span}.compute'):
+                ent['value'] = compute()
         except BaseException as e:
             ent['error'] = e
             with self._lock:
@@ -442,6 +433,8 @@ def _device_of(value):
 def _move(value, device):
     if isinstance(value, tuple):
         return tuple(_move(v, device) for v in value)
+    if isinstance(value, torch.Tensor):
+        return to_device(value, device, 'anc_copy')
     return value.to(device)
 
 
@@ -544,16 +537,31 @@ def _run_preps(preps):
     Each closure returns a dict of image_dict updates (disjoint keys).
     The first prep runs on the calling reader thread — it stays busy
     instead of sleeping on a future — while the rest overlap in the
-    pool. Exceptions propagate exactly as the serial code's did (the
-    first to fail raises; the campaign retry path handles it)."""
+    pool, under the caller's span (``TRACER.carry``). Exceptions
+    propagate exactly as the serial code's did (the first to fail
+    raises; the campaign retry path handles it)."""
     pool = _prep_pool() if len(preps) > 1 else None
     if pool is None:
         return [fn() for fn in preps]
-    futures = [pool.submit(fn) for fn in preps[1:]]
+    futures = [pool.submit(TRACER.carry(fn)) for fn in preps[1:]]
     results = [preps[0]()]
     results += [f.result() for f in futures]
     return results
 
+
+def _tile_span(name):
+    """Run the decorated ``fn(job, ...)`` inside the tracer's span
+    ``name``, for the job's tile."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(job, *args, **kwargs):
+            with TRACER.span(name, item=job.tile_id):
+                return fn(job, *args, **kwargs)
+        return run
+    return wrap
+
+
+@_tile_span('campaign.read')
 def _read_tile(job, flag_debug=False, config=None, scaled=False,
                device_scale=False, device=None):
     """Decode one tile's bands + prepare its ancillary masks on ``device``
@@ -570,7 +578,8 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
     (float32 reflectance, reference dswx_hls.py:2298-2302).
     ``device_scale=True`` keeps the bands RAW int16 and records the
     per-band scale/offset vectors instead — the step applies the cast on
-    the device (half the h2d bytes, no host float pass)."""
+    the device (half the h2d bytes, no host float pass). The read is the
+    tracer's span ``campaign.read``."""
     _maybe_inject_fault(job.tile_id)
     from proteus_tpu_torch.io import hls as hls_io
     if device is None:
@@ -653,7 +662,8 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
                 # stay on the device; the writer pool copies them out
                 dem_m, dem_crop = ANCILLARY_CACHE.get(
                     dkey, _warp_dem, device,
-                    move=lambda v, dev: _crop(v[0].to(dev)))
+                    move=lambda v, dev: _crop(
+                        to_device(v[0], dev, 'anc_copy')))
 
                 def _shadow():
                     if shadow_alg == 'otsu':
@@ -727,9 +737,11 @@ def _host(a):
     (the spatial step's) is copied piece by piece and joined here."""
     if isinstance(a, (list, tuple)):
         return np.concatenate([_host(p) for p in a], axis=0)
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return to_host(a, 'write') if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
 
 
+@_tile_span('campaign.write')
 def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
     """Write all available layers (+ browse) for one tile.
 
@@ -737,7 +749,8 @@ def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
     on their shards' devices — copied out here, in the writer pool, so the
     device->host transfer overlaps the next batch's compute. In
     minimal-transfer mode (a 'PACKED_A' key), the dependent layers are
-    derived here too (models/dswx/host_derive.py)."""
+    derived here too (models/dswx/host_derive.py). The write is the
+    tracer's span ``campaign.write``."""
     from proteus_tpu_torch.io.png import geotiff2png
     from proteus_tpu_torch.runtime import ctables
     from proteus_tpu_torch.runtime import product_writer as pw
@@ -963,7 +976,24 @@ class CampaignRunner:
         }
 
     def run(self, jobs, metadata=None):
-        """Process all jobs; returns campaign statistics."""
+        """Process all jobs; returns campaign statistics, with
+        ``counters``: what ``COUNTERS`` counted during the run (copy
+        bytes by site, the caches' hits and misses, kernel builds)."""
+        counters0 = COUNTERS.snapshot()
+        with TRACER.span('campaign.run'):
+            stats = self._run(jobs, metadata)
+        stats['counters'] = Counters.delta(COUNTERS.snapshot(), counters0)
+        return stats
+
+    def _run(self, jobs, metadata):
+        """The body of ``run``. On the calling thread, which feeds the
+        devices, the tracer's spans ``campaign.submit_reads``,
+        ``campaign.wait_read`` (blocked on a batch's reads),
+        ``batch_stage_h2d``, ``campaign.step.launch``,
+        ``campaign.step.wait`` (the totals' read, which waits for the
+        launches), ``campaign.submit_writes``, ``campaign.mark_done`` and
+        ``campaign.wait_write`` (the last writes and their marks) tile
+        each ``campaign.batch``."""
         pending = [j for j in jobs
                    if self.manifest.status(j.tile_id) != 'done']
         logger.info(f'campaign: {len(jobs)} tiles, {len(pending)} pending,'
@@ -984,11 +1014,13 @@ class CampaignRunner:
         def submit(batch):
             # each tile is read onto the device of its share of the batch
             # (_run_batch gives share k tiles k*tpd .. (k+1)*tpd - 1)
-            return [(j, self._readers.submit(
-                         _read_tile, j, self.flag_debug, self.config,
-                         self.scaled_inputs, self.device_scale,
-                         self._reader_device(i)))
-                    for i, j in enumerate(batch)]
+            with TRACER.span('campaign.submit_reads'):
+                return [(j, self._readers.submit(
+                             TRACER.carry(_read_tile, item=j.tile_id), j,
+                             self.flag_debug, self.config,
+                             self.scaled_inputs, self.device_scale,
+                             self._reader_device(i)))
+                        for i, j in enumerate(batch)]
 
         marked = set()
 
@@ -996,80 +1028,89 @@ class CampaignRunner:
             """Mark finished writes in the manifest NOW (not at campaign
             end) so a killed campaign resumes from every tile whose
             outputs actually landed."""
-            for job, fut in write_futures:
-                if job.tile_id in marked:
-                    continue
-                if not block and not fut.done():
-                    continue
-                marked.add(job.tile_id)
-                try:
-                    saved = fut.result()
-                    self.manifest.mark(job.tile_id, 'done',
-                                       outputs=saved)
-                    stats['tiles_done'] += 1
-                except Exception as e:  # noqa: BLE001
-                    logger.error(f'tile {job.tile_id} write failed: {e}')
-                    self.manifest.mark(job.tile_id, 'failed',
-                                       error=str(e))
-                    stats['tiles_failed'] += 1
+            with TRACER.span('campaign.wait_write' if block
+                             else 'campaign.mark_done'):
+                for job, fut in write_futures:
+                    if job.tile_id in marked:
+                        continue
+                    if not block and not fut.done():
+                        continue
+                    marked.add(job.tile_id)
+                    try:
+                        saved = fut.result()
+                        self.manifest.mark(job.tile_id, 'done',
+                                           outputs=saved)
+                        stats['tiles_done'] += 1
+                    except Exception as e:  # noqa: BLE001
+                        logger.error(f'tile {job.tile_id} write failed: '
+                                     f'{e}')
+                        self.manifest.mark(job.tile_id, 'failed',
+                                           error=str(e))
+                        stats['tiles_failed'] += 1
 
         # prefetch the first batch; retries may append batches mid-flight
         prefetch = submit(batch_list[0]) if batch_list else None
         bi = 0
         while bi < len(batch_list):
-            # prefetch is None when a retry appended a batch after the
-            # last scheduled one — submit it now
-            current = prefetch if prefetch is not None \
-                else submit(batch_list[bi])
-            bi += 1
-            prefetch = submit(batch_list[bi]) if bi < len(batch_list) \
-                else None
+            with TRACER.span('campaign.batch', item=f'batch {bi}'):
+                # prefetch is None when a retry appended a batch after
+                # the last scheduled one — submit it now
+                current = prefetch if prefetch is not None \
+                    else submit(batch_list[bi])
+                bi += 1
+                prefetch = submit(batch_list[bi]) if bi < len(batch_list) \
+                    else None
 
-            loaded = []
-            for job, fut in current:
-                try:
-                    loaded.append((job, fut.result()))
-                except Exception as e:  # noqa: BLE001
-                    attempt[job.tile_id] += 1
-                    if attempt[job.tile_id] <= self.max_retries:
-                        logger.warning(f'tile {job.tile_id} read failed'
-                                       f' (attempt {attempt[job.tile_id]}):'
-                                       f' {e}; requeueing')
-                        batch_list.append([job])
-                    else:
-                        logger.error(f'tile {job.tile_id} failed: {e}')
-                        self.manifest.mark(job.tile_id, 'failed',
-                                           error=str(e),
-                                           trace=traceback.format_exc())
-                        stats['tiles_failed'] += 1
-            if not loaded:
-                continue
+                loaded = []
+                with TRACER.span('campaign.wait_read'):
+                    for job, fut in current:
+                        try:
+                            loaded.append((job, fut.result()))
+                        except Exception as e:  # noqa: BLE001
+                            attempt[job.tile_id] += 1
+                            if attempt[job.tile_id] <= self.max_retries:
+                                logger.warning(
+                                    f'tile {job.tile_id} read failed'
+                                    f' (attempt {attempt[job.tile_id]}):'
+                                    f' {e}; requeueing')
+                                batch_list.append([job])
+                            else:
+                                logger.error(
+                                    f'tile {job.tile_id} failed: {e}')
+                                self.manifest.mark(
+                                    job.tile_id, 'failed', error=str(e),
+                                    trace=traceback.format_exc())
+                                stats['tiles_failed'] += 1
+                if not loaded:
+                    continue
 
-            out, totals = self._run_batch(loaded)
-            stats['n_valid_total'] += int(totals['n_valid_total'])
-            stats['n_cloud_and_valid_total'] += int(
-                totals['n_cloud_and_valid_total'])
+                out, totals = self._run_batch(loaded)
+                stats['n_valid_total'] += int(totals['n_valid_total'])
+                stats['n_cloud_and_valid_total'] += int(
+                    totals['n_cloud_and_valid_total'])
 
-            layer_names = [name for name in out
-                           if name not in ('n_valid', 'n_cloud_and_valid')]
-            for k, (job, image_dict) in enumerate(loaded):
-                # hand the writer the device tensors: the copy to the host
-                # happens in the writer pool, overlapping the next batch's
-                # compute
-                layers = {name: out[name][k] for name in layer_names}
-                md = self._tile_metadata(job, image_dict)
-                md.update(metadata or {})
-                write_futures.append(
-                    (job, self._writers.submit(
-                        _write_tile, job, layers, image_dict, md,
-                        self._derive_opts())))
-            drain_writes(block=False)
+                layer_names = [name for name in out if name not in
+                               ('n_valid', 'n_cloud_and_valid')]
+                with TRACER.span('campaign.submit_writes'):
+                    for k, (job, image_dict) in enumerate(loaded):
+                        # hand the writer the device tensors: the copy to
+                        # the host happens in the writer pool, overlapping
+                        # the next batch's compute
+                        layers = {name: out[name][k]
+                                  for name in layer_names}
+                        md = self._tile_metadata(job, image_dict)
+                        md.update(metadata or {})
+                        write_futures.append((job, self._writers.submit(
+                            TRACER.carry(_write_tile, item=job.tile_id,
+                                         queued='campaign.write.queued'),
+                            job, layers, image_dict, md,
+                            self._derive_opts())))
+                drain_writes(block=False)
 
         drain_writes(block=True)
         if STAGE_TIMES.enabled:
             stats['stage_seconds'] = STAGE_TIMES.table()
         return stats
-
 
     def _run_batch(self, loaded):
         """Pad the batch to batch_size, stack each device's share on that
@@ -1098,9 +1139,10 @@ class CampaignRunner:
             shares = []
             for k, dev in enumerate(self.mesh):
                 arrs = [d[key] for d in dicts[k * tpd:(k + 1) * tpd]]
-                tiles = [a.to(dev) if isinstance(a, torch.Tensor)
-                         else torch.from_numpy(np.ascontiguousarray(
-                             a, dtype=dtype)).to(dev) for a in arrs]
+                tiles = [to_device(
+                    a if isinstance(a, torch.Tensor)
+                    else np.ascontiguousarray(a, dtype=dtype), dev, 'stack')
+                    for a in arrs]
                 tiles += [torch.full((h, w), pad_value, dtype=dtype_t[dtype],
                                      device=dev)
                           for _ in range(tpd - len(tiles))]
@@ -1124,8 +1166,8 @@ class CampaignRunner:
                     vecs += [np.full(6, pad_value, np.float32)] \
                         * (b - len(vecs))
                     args.append(np.stack(vecs) if spatial else [
-                        torch.from_numpy(np.stack(
-                            vecs[k * tpd:(k + 1) * tpd])).to(dev)
+                        to_device(np.stack(vecs[k * tpd:(k + 1) * tpd]),
+                                  dev, 'stack')
                         for k, dev in enumerate(self.mesh)])
             d0 = dicts[0]
             with_ocean = 'ocean_mask' in d0

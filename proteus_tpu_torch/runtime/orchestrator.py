@@ -12,14 +12,18 @@ the fused CUDA kernels
 (K1 or K3, and K2 in 'cover' mode), on the CPU the plain PyTorch chain;
 all layers come back to the host once, after the chain.
 
-With ``PROTEUS_TPU_TRACE_DIR`` set, the device chain and the transfer run
-under ``runtime.profiling.device_trace`` (a ``torch.profiler`` trace, as
-``proteus_tpu/runtime/orchestrator.py:502`` takes a ``jax.profiler`` one).
+Each product run is the tracer's span ``sas.product``; its stages are
+spans under their stage table's names, and each layer save a span
+``save <layer>`` inside 'layer saves (COG encode)'. With
+``PROTEUS_TPU_TRACE_DIR`` set, the whole run is traced by
+``runtime.profiling.device_trace`` (a ``torch.profiler`` trace holding
+every stage span, as ``proteus_tpu/runtime/orchestrator.py:502`` takes a
+``jax.profiler`` one of the chain).
 """
 
+import functools
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -27,7 +31,7 @@ import torch
 from proteus_tpu_torch.config.runconfig import parse_runconfig_file
 from proteus_tpu_torch.core import constants as C
 from proteus_tpu_torch.core.thresholds import HlsThresholds
-from proteus_tpu_torch.device import synchronize
+from proteus_tpu_torch.device import synchronize, to_device, to_host
 from proteus_tpu_torch.geo.coverage import check_ancillary_inputs
 from proteus_tpu_torch.geo.polygon import create_ocean_mask
 from proteus_tpu_torch.geo.warp import warp_to_grid_device, worldcover_year_of
@@ -44,7 +48,8 @@ from proteus_tpu_torch.ops.wtr_kernel import (COUNTS, kernel_slices,
 from proteus_tpu_torch.runtime import ctables
 from proteus_tpu_torch.runtime import metadata as md_util
 from proteus_tpu_torch.runtime import product_writer as pw
-from proteus_tpu_torch.runtime.profiling import StageTimers, device_trace
+from proteus_tpu_torch.runtime.profiling import (TRACER, StageTimers,
+                                                device_trace)
 from proteus_tpu_torch.version import VERSION as SOFTWARE_VERSION
 
 logger = logging.getLogger('dswx_hls')
@@ -61,6 +66,19 @@ def _crop_margin(arr, margin):
     return arr[margin:-margin, margin:-margin]
 
 
+def _traced_product_run(fn):
+    """Run ``fn`` (``generate_dswx_layers``) as the tracer's span
+    ``sas.product``, under ``device_trace`` of ``PROTEUS_TPU_TRACE_DIR``
+    when it is set."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with device_trace(os.environ.get('PROTEUS_TPU_TRACE_DIR')), \
+                TRACER.span('sas.product', item=kwargs.get('product_id')):
+            return fn(*args, **kwargs)
+    return run
+
+
+@_traced_product_run
 def generate_dswx_layers(input_list,
                          output_file=None,
                          hls_thresholds=None,
@@ -411,34 +429,30 @@ def generate_dswx_layers(input_list,
         where += ' (cuda kernels ' + ' + '.join(kernel_slices(
             blue.dtype == np.float32, p['mask_adjacent_to_cloud_mode'])) + ')'
     logger.info(f'running the fused DSWx device chain on {where}')
-    with device_trace(os.environ.get('PROTEUS_TPU_TRACE_DIR')) as trace:
-        with timers.stage('device chain (compile+run)'), \
-                trace.annotate('device chain (compile+run)'):
-            def to_dev(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            bands = [to_dev(a) for a in (blue, green, red, nir, swir1, swir2)]
-            fmask_d = to_dev(fmask)
-            invalid_d = to_dev(invalid_array)
-            # the layers and the coverage counts, which the kernel adds up
-            # as it goes (the reference's jitted stats,
-            # orchestrator.py:477-495)
-            out = wtr_layers(*bands, fmask_d, invalid_d, chain_config,
-                             ocean=ocean_mask, shadow=shadow_layer,
-                             landcover=landcover_mask,
-                             compute_browse=output_browse_image is not None)
-            del bands, fmask_d, invalid_d
-            synchronize(device)
-        with timers.stage('device->host transfer'), \
-                trace.annotate('device->host transfer'):
-            # the three counts in one read
-            n_valid, n_cloud_and_valid, n_not_ocean = torch.stack(
-                [out.pop(k) for k in COUNTS]).tolist()
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-            if dem is not None:
-                dem = dem.cpu().numpy()
-                shadow_layer = shadow_layer.cpu().numpy()
-            if landcover_mask is not None:
-                landcover_mask = landcover_mask.cpu().numpy()
+    with timers.stage('device chain (compile+run)'):
+        def to_dev(a):
+            return to_device(np.ascontiguousarray(a), device, 'chain')
+        bands = [to_dev(a) for a in (blue, green, red, nir, swir1, swir2)]
+        fmask_d = to_dev(fmask)
+        invalid_d = to_dev(invalid_array)
+        # the layers and the coverage counts, which the kernel adds up as
+        # it goes (the reference's jitted stats, orchestrator.py:477-495)
+        out = wtr_layers(*bands, fmask_d, invalid_d, chain_config,
+                         ocean=ocean_mask, shadow=shadow_layer,
+                         landcover=landcover_mask,
+                         compute_browse=output_browse_image is not None)
+        del bands, fmask_d, invalid_d
+        synchronize(device)
+    with timers.stage('device->host transfer'):
+        # the three counts in one read
+        n_valid, n_cloud_and_valid, n_not_ocean = torch.stack(
+            [out.pop(k) for k in COUNTS]).tolist()
+        out = {k: to_host(v, 'chain') for k, v in out.items()}
+        if dem is not None:
+            dem = to_host(dem, 'chain')
+            shadow_layer = to_host(shadow_layer, 'chain')
+        if landcover_mask is not None:
+            landcover_mask = to_host(landcover_mask, 'chain')
 
     # ---- coverage statistics -> metadata ------------------------------------
     total_number_of_pixels = length * width
@@ -459,121 +473,145 @@ def generate_dswx_layers(input_list,
     dswx_metadata_dict['CLOUD_COVERAGE'] = cloud_coverage
 
     # ---- layer saves (reference order; dswx_hls.py:5138-5397) ---------------
-    saves_t0 = time.perf_counter()
-    if dem is not None and output_dem_layer is not None:
-        pw.save_array(dem, output_dem_layer, dswx_metadata_dict,
-                      geotransform, projection,
-                      description=C.BAND_DESCRIPTION_DICT['DEM'],
-                      output_files_list=vrt_member_files,
-                      no_data_value=np.nan)
-    if shadow_layer is not None and output_shadow_layer:
-        pw.save_array(shadow_layer, output_shadow_layer,
-                      dswx_metadata_dict, geotransform, projection,
-                      description=C.BAND_DESCRIPTION_DICT['SHAD'],
-                      output_files_list=vrt_member_files,
-                      ctable=ctables.get_binary_mask_ctable())
-    if landcover_mask is not None and output_landcover:
-        pw.save_array(landcover_mask, output_landcover,
-                      dswx_metadata_dict, geotransform, projection,
-                      description=C.BAND_DESCRIPTION_DICT['LAND'],
-                      output_files_list=vrt_member_files,
-                      ctable=ctables.get_landcover_mask_ctable(),
-                      no_data_value=C.DSWX_HLS_LANDCOVER_CLASSES_DICT[
-                          'fill_value'])
+    def save(layer):
+        return TRACER.span(f'save {layer}')
 
-    invalid_ind = np.where(invalid_array)
-    if output_rgb_file:
-        pw.save_output_rgb_file(red, green, blue, output_rgb_file,
-                                offset_dict, scale_dict,
-                                flag_offset_and_scale_inputs,
-                                dswx_metadata_dict, geotransform,
-                                projection, invalid_ind=invalid_ind,
-                                output_files_list=standalone_output_files)
-    if output_infrared_rgb_file:
-        pw.save_output_rgb_file(swir1, nir, red, output_infrared_rgb_file,
-                                offset_dict, scale_dict,
-                                flag_offset_and_scale_inputs,
-                                dswx_metadata_dict, geotransform,
-                                projection, invalid_ind=invalid_ind,
-                                output_files_list=standalone_output_files,
-                                flag_infrared=True)
+    with timers.stage('layer saves (COG encode)'):
+        if dem is not None and output_dem_layer is not None:
+            with save('DEM'):
+                pw.save_array(dem, output_dem_layer, dswx_metadata_dict,
+                              geotransform, projection,
+                              description=C.BAND_DESCRIPTION_DICT['DEM'],
+                              output_files_list=vrt_member_files,
+                              no_data_value=np.nan)
+        if shadow_layer is not None and output_shadow_layer:
+            with save('SHAD'):
+                pw.save_array(shadow_layer, output_shadow_layer,
+                              dswx_metadata_dict, geotransform, projection,
+                              description=C.BAND_DESCRIPTION_DICT['SHAD'],
+                              output_files_list=vrt_member_files,
+                              ctable=ctables.get_binary_mask_ctable())
+        if landcover_mask is not None and output_landcover:
+            with save('LAND'):
+                pw.save_array(landcover_mask, output_landcover,
+                              dswx_metadata_dict, geotransform, projection,
+                              description=C.BAND_DESCRIPTION_DICT['LAND'],
+                              output_files_list=vrt_member_files,
+                              ctable=ctables.get_landcover_mask_ctable(),
+                              no_data_value=C.DSWX_HLS_LANDCOVER_CLASSES_DICT[
+                                  'fill_value'])
 
-    if output_diagnostic_layer:
-        pw.save_array(out['DIAG'], output_diagnostic_layer,
-                      dswx_metadata_dict, geotransform, projection,
-                      description=C.BAND_DESCRIPTION_DICT['DIAG'],
-                      output_files_list=vrt_member_files,
-                      no_data_value=C.DIAGNOSTIC_LAYER_NO_DATA_BINARY_REPR)
-    if output_non_masked_dswx:
-        pw.save_dswx_product(out['WTR-1'], 'WTR-1', output_non_masked_dswx,
-                             dswx_metadata_dict, geotransform, projection,
-                             output_files_list=vrt_member_files)
-    if output_shadow_masked_dswx is not None:
-        pw.save_dswx_product(out['WTR-2'], 'WTR-2',
-                             output_shadow_masked_dswx,
-                             dswx_metadata_dict, geotransform, projection,
-                             output_files_list=vrt_member_files)
-    if output_interpreted_band:
-        pw.save_dswx_product(out['WTR'], 'WTR', output_interpreted_band,
-                             dswx_metadata_dict, geotransform, projection,
-                             output_files_list=vrt_member_files)
+        invalid_ind = np.where(invalid_array)
+        if output_rgb_file:
+            with save('RGB'):
+                pw.save_output_rgb_file(
+                    red, green, blue, output_rgb_file, offset_dict,
+                    scale_dict, flag_offset_and_scale_inputs,
+                    dswx_metadata_dict, geotransform, projection,
+                    invalid_ind=invalid_ind,
+                    output_files_list=standalone_output_files)
+        if output_infrared_rgb_file:
+            with save('infrared RGB'):
+                pw.save_output_rgb_file(
+                    swir1, nir, red, output_infrared_rgb_file, offset_dict,
+                    scale_dict, flag_offset_and_scale_inputs,
+                    dswx_metadata_dict, geotransform, projection,
+                    invalid_ind=invalid_ind,
+                    output_files_list=standalone_output_files,
+                    flag_infrared=True)
 
-    if output_browse_image:
-        browse_ctable = ctables.get_browse_ctable(
-            flag_collapse_wtr_classes=C.FLAG_COLLAPSE_WTR_CLASSES,
-            not_water_color=p['not_water_in_browse'],
-            cloud_color=p['cloud_in_browse'],
-            snow_color=p['snow_in_browse'])
-        browse_geotiff = output_browse_image.replace('.png', '.tif')
-        standalone_output_files.append(browse_geotiff)
-        pw.save_array(out['BROWSE'], browse_geotiff, dswx_metadata_dict,
-                      geotransform, projection,
-                      ctable=browse_ctable,
-                      no_data_value=C.UINT8_FILL_VALUE)
-        geotiff2png(browse_geotiff, output_browse_image,
-                    output_height=p['browse_image_height'],
-                    output_width=p['browse_image_width'],
-                    logger_=logger, rgba_ctable=browse_ctable)
-        standalone_output_files.append(output_browse_image)
+        if output_diagnostic_layer:
+            with save('DIAG'):
+                pw.save_array(out['DIAG'], output_diagnostic_layer,
+                              dswx_metadata_dict, geotransform, projection,
+                              description=C.BAND_DESCRIPTION_DICT['DIAG'],
+                              output_files_list=vrt_member_files,
+                              no_data_value=
+                              C.DIAGNOSTIC_LAYER_NO_DATA_BINARY_REPR)
+        if output_non_masked_dswx:
+            with save('WTR-1'):
+                pw.save_dswx_product(out['WTR-1'], 'WTR-1',
+                                     output_non_masked_dswx,
+                                     dswx_metadata_dict, geotransform,
+                                     projection,
+                                     output_files_list=vrt_member_files)
+        if output_shadow_masked_dswx is not None:
+            with save('WTR-2'):
+                pw.save_dswx_product(out['WTR-2'], 'WTR-2',
+                                     output_shadow_masked_dswx,
+                                     dswx_metadata_dict, geotransform,
+                                     projection,
+                                     output_files_list=vrt_member_files)
+        if output_interpreted_band:
+            with save('WTR'):
+                pw.save_dswx_product(out['WTR'], 'WTR',
+                                     output_interpreted_band,
+                                     dswx_metadata_dict, geotransform,
+                                     projection,
+                                     output_files_list=vrt_member_files)
 
-    if output_cloud_layer:
-        pw.save_cloud_layer(out['CLOUD'], output_cloud_layer,
-                            dswx_metadata_dict, geotransform, projection,
-                            description=C.BAND_DESCRIPTION_DICT['CLOUD'],
-                            output_files_list=vrt_member_files)
-    if output_binary_water:
-        pw.save_binary_water(out['BWTR'], output_binary_water,
-                             dswx_metadata_dict, geotransform, projection,
-                             description=C.BAND_DESCRIPTION_DICT['BWTR'],
-                             output_files_list=vrt_member_files)
-    if output_confidence_layer:
-        pw.save_array(out['CONF'], output_confidence_layer,
-                      dswx_metadata_dict, geotransform, projection,
-                      description=C.BAND_DESCRIPTION_DICT['CONF'],
-                      output_files_list=vrt_member_files,
-                      ctable=ctables.get_confidence_layer_ctable(),
-                      no_data_value=C.UINT8_FILL_VALUE)
+        if output_browse_image:
+            with save('BROWSE'):
+                browse_ctable = ctables.get_browse_ctable(
+                    flag_collapse_wtr_classes=C.FLAG_COLLAPSE_WTR_CLASSES,
+                    not_water_color=p['not_water_in_browse'],
+                    cloud_color=p['cloud_in_browse'],
+                    snow_color=p['snow_in_browse'])
+                browse_geotiff = output_browse_image.replace('.png', '.tif')
+                standalone_output_files.append(browse_geotiff)
+                pw.save_array(out['BROWSE'], browse_geotiff,
+                              dswx_metadata_dict, geotransform, projection,
+                              ctable=browse_ctable,
+                              no_data_value=C.UINT8_FILL_VALUE)
+                geotiff2png(browse_geotiff, output_browse_image,
+                            output_height=p['browse_image_height'],
+                            output_width=p['browse_image_width'],
+                            logger_=logger, rgba_ctable=browse_ctable)
+                standalone_output_files.append(output_browse_image)
 
-    if output_file and not output_file.endswith('.vrt'):
-        pw.save_dswx_product(out['WTR'], 'WTR', output_file,
-                             dswx_metadata_dict, geotransform, projection,
-                             bwtr=out['BWTR'], diag=out['DIAG'],
-                             wtr_1=out['WTR-1'], wtr_2=out['WTR-2'],
-                             land=landcover_mask, shad=shadow_layer,
-                             cloud=out['CLOUD'], dem=dem,
-                             output_files_list=standalone_output_files)
-    elif output_file:
-        build_vrt(output_file, vrt_member_files)
-        vrt_member_files.append(output_file)
-        logger.info(f'file saved: {output_file}')
+        if output_cloud_layer:
+            with save('CLOUD'):
+                pw.save_cloud_layer(
+                    out['CLOUD'], output_cloud_layer, dswx_metadata_dict,
+                    geotransform, projection,
+                    description=C.BAND_DESCRIPTION_DICT['CLOUD'],
+                    output_files_list=vrt_member_files)
+        if output_binary_water:
+            with save('BWTR'):
+                pw.save_binary_water(
+                    out['BWTR'], output_binary_water, dswx_metadata_dict,
+                    geotransform, projection,
+                    description=C.BAND_DESCRIPTION_DICT['BWTR'],
+                    output_files_list=vrt_member_files)
+        if output_confidence_layer:
+            with save('CONF'):
+                pw.save_array(out['CONF'], output_confidence_layer,
+                              dswx_metadata_dict, geotransform, projection,
+                              description=C.BAND_DESCRIPTION_DICT['CONF'],
+                              output_files_list=vrt_member_files,
+                              ctable=ctables.get_confidence_layer_ctable(),
+                              no_data_value=C.UINT8_FILL_VALUE)
 
-    saves_elapsed = time.perf_counter() - saves_t0
+        if output_file and not output_file.endswith('.vrt'):
+            with save('product'):
+                pw.save_dswx_product(
+                    out['WTR'], 'WTR', output_file, dswx_metadata_dict,
+                    geotransform, projection, bwtr=out['BWTR'],
+                    diag=out['DIAG'], wtr_1=out['WTR-1'],
+                    wtr_2=out['WTR-2'], land=landcover_mask,
+                    shad=shadow_layer, cloud=out['CLOUD'], dem=dem,
+                    output_files_list=standalone_output_files)
+        elif output_file:
+            with save('VRT'):
+                build_vrt(output_file, vrt_member_files)
+                vrt_member_files.append(output_file)
+                logger.info(f'file saved: {output_file}')
+
     logger.info('removing temporary files:')
     for filename in scratch_files:
         if os.path.isfile(filename):
             os.remove(filename)
             logger.info(f'    {filename}')
-    timers.add('layer saves (COG encode)', saves_elapsed)
     logger.info('output files:')
     for filename in vrt_member_files + standalone_output_files:
         logger.info(f'    {filename}')

@@ -185,10 +185,11 @@ def profile(size, iters, passes, device, trace_dir=None, say=print):
                        else 'traffic/overhead-bound')}
 
     if trace_dir:
-        from proteus_tpu_torch.runtime.profiling import (device_busy_share,
+        from proteus_tpu_torch.runtime.profiling import (TRACER,
+                                                         device_busy_share,
                                                          device_trace)
         with device_trace(trace_dir) as trace:
-            with trace.annotate('int_minimal_packed'):
+            with TRACER.span('int_minimal_packed'):
                 wtr_layers_batched(*[t.unsqueeze(0) for t in dev_int],
                                    DswxChainConfig(), minimal=True)
                 synchronize(device)

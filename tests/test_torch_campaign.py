@@ -267,10 +267,12 @@ def test_runner_resume_retry_and_padding(tiles, tmp_path, monkeypatch):
     one = str(tmp_path / 'one')
     runner, stats = run(one, tiles_per_device=1)
     assert stats['tiles_done'] == 5
-    # resume: every tile is done, nothing runs again
+    # resume: every tile is done, nothing runs again (and nothing is
+    # counted: no copy, no cache lookup)
     _, stats = run(one, tiles_per_device=1)
     assert stats == {'tiles_done': 0, 'tiles_failed': 0,
-                     'n_valid_total': 0, 'n_cloud_and_valid_total': 0}
+                     'n_valid_total': 0, 'n_cloud_and_valid_total': 0,
+                     'counters': {}}
     # a batch of 2 devices x 2 tiles: 5 jobs pad the last batch; tile_1
     # fails its first read and is retried
     monkeypatch.setattr(tcampaign, '_FAULT_ATTEMPTS', {})

@@ -7,8 +7,9 @@
   call; the tool itself is not edited), on the same seeded numpy inputs,
   tolerance 0; the wrapper's checks.
 - ``runtime/profiling.py``: ``busy_share`` on synthetic intervals,
-  ``device_trace`` off (no profiler import) and on (a trace file), and
-  ``device_busy_share`` on a synthetic Chrome trace.
+  ``device_trace`` off (no profiler import) and on (a trace file holding
+  the tracer's spans), and ``device_busy_share`` on a synthetic Chrome
+  trace (the tracer itself: ``tests/test_torch_tracing.py``).
 - ``tools/kernel_profile.py`` and ``tools/bench.py`` on ``--device cpu`` at
   small sizes: the JAX tools' variant names, byte counts and JSON keys.
 """
@@ -177,8 +178,8 @@ def test_device_busy_share_reads_a_chrome_trace(tmp_path):
 
 _OFF_SCRIPT = r'''
 import sys
-from proteus_tpu_torch.runtime.profiling import device_trace
-with device_trace(None) as t, t.annotate('x'):
+from proteus_tpu_torch.runtime.profiling import TRACER, device_trace
+with device_trace(None) as t, TRACER.span('x'):
     pass
 with device_trace('') as t:
     pass
@@ -207,7 +208,7 @@ def test_device_trace_off_starts_no_profiler(monkeypatch):
     monkeypatch.setattr(torch.profiler, 'profile', refuse)
     monkeypatch.setattr(torch.profiler, 'record_function', refuse)
     with profiling.device_trace(None) as trace:
-        with trace.annotate('stage'):
+        with profiling.TRACER.span('stage'):
             value = float(torch.ones(8).sum())
     assert value == 8.0 and trace.path is None
 
@@ -215,9 +216,9 @@ def test_device_trace_off_starts_no_profiler(monkeypatch):
 def test_device_trace_writes_a_trace(tmp_path):
     trace_dir = tmp_path / 'traces'
     with profiling.device_trace(str(trace_dir)) as trace:
-        with trace.annotate('stage one'):
+        with profiling.TRACER.span('stage one'):
             torch.ones(64).sum()
-        with trace.annotate('stage two'):
+        with profiling.TRACER.span('stage two'):
             torch.ones(64).sum()
     assert trace.enabled and os.path.isfile(trace.path)
     assert os.path.dirname(trace.path) == str(trace_dir)
