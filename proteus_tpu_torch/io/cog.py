@@ -294,6 +294,7 @@ class _IfdPlan:
         self.compress = compress
         self.predictor = predictor
         self.is_overview = is_overview
+        self.dtype = array.dtype
         self.height, self.width = array.shape[:2]
         self.samples = 1 if array.ndim == 2 else array.shape[2]
         self.tiles_across = (self.width + tile_size - 1) // tile_size
@@ -398,8 +399,6 @@ class _PayloadCache:
         cap = self.max_entries()
         if cap <= 0:
             return
-        for p in plans:
-            p.array = None  # layout never reads it; free the pixels
         with self._lock:
             if key not in self._entries:
                 self._order.append(key)
@@ -443,12 +442,50 @@ def _pack_tag(tag, typ, values, extra_area, extra_base):
     return struct.pack('<HHII', tag, typ, n, offset)
 
 
+def _samples(array):
+    """``array`` as (H, W, S), bool as uint8."""
+    array = np.asarray(array)
+    arr3 = array[:, :, None] if array.ndim == 2 else array
+    if arr3.dtype == np.bool_:
+        arr3 = arr3.astype(np.uint8)
+    return arr3
+
+
+@TRACER.traced('cog.payload')
+def build_payload(array, overview_levels=DEFAULT_OVERVIEW_LEVELS,
+                  tile_size=DEFAULT_TILE_SIZE, compress=True,
+                  num_threads=8):
+    """The pixel payload of a COG of ``array`` ((H, W) or (H, W, S)): the
+    main level and its overview pyramid, each as its tiles after the
+    predictor and DEFLATE, and no tag; ``write_payload`` lays it out in a
+    file. The build is the tracer's span ``cog.payload``."""
+    arr3 = _samples(array)
+    h, w = arr3.shape[:2]
+    is_float = arr3.dtype.kind == 'f'
+    predictor = (codecs.PREDICTOR_FLOAT if is_float
+                 else codecs.PREDICTOR_HORIZONTAL) if compress \
+        else codecs.PREDICTOR_NONE
+    plans = [_IfdPlan(arr3, tile_size, compress, predictor, False)]
+    for f in (overview_levels or ()):
+        if w // f < 1 or h // f < 1:
+            continue
+        dec = _cubicspline_decimate(arr3, f) if is_float \
+            else _nearest_decimate(arr3, f)
+        plans.append(_IfdPlan(dec, tile_size, compress, predictor, True))
+    with ThreadPoolExecutor(max_workers=num_threads) as pool:
+        for p in plans:
+            p.build_tiles(pool)
+    for p in plans:
+        p.array = None  # layout never reads it; free the pixels
+    return plans
+
+
 @TRACER.traced('cog.encode')
 def write_cog(path, array, geotransform=None, epsg=None, nodata=None,
               metadata=None, band_descriptions=None, color_map=None,
               overview_levels=DEFAULT_OVERVIEW_LEVELS,
               tile_size=DEFAULT_TILE_SIZE, compress=True,
-              num_threads=8, payload_key=None):
+              num_threads=8, payload_key=None, payload=None):
     """Write ``array`` ((H, W) or (H, W, S)) as a cloud-optimized GeoTIFF.
 
     color_map: {value: (r, g, b)} for single-band uint8 palette output.
@@ -458,46 +495,45 @@ def write_cog(path, array, geotransform=None, epsg=None, nodata=None,
     PAYLOAD_CACHE across writes of identical pixels (tags — metadata,
     geo keys, descriptions — are rebuilt per file). The caller owns key
     correctness: the same key MUST imply the same array bytes.
+    payload: ``build_payload(array, ...)``, built beforehand; the write
+    then only lays it out (its levels, tile size and compression hold).
 
     The write is the tracer's span ``cog.encode``.
     """
-    array = np.asarray(array)
-    if array.ndim == 2:
-        arr3 = array[:, :, None]
+    arr3 = _samples(array)
+    if payload is not None:
+        main = payload[0]
+        if (main.height, main.width, main.samples, main.dtype) != \
+                (*arr3.shape, arr3.dtype):
+            raise ValueError('write_cog: the payload is not of this array')
+        plans = payload
     else:
-        arr3 = array
-    h, w, samples = arr3.shape
-    dtype = arr3.dtype
-    if dtype == np.bool_:
-        arr3 = arr3.astype(np.uint8)
-        dtype = arr3.dtype
-    is_float = dtype.kind == 'f'
-    predictor = (codecs.PREDICTOR_FLOAT if is_float
-                 else codecs.PREDICTOR_HORIZONTAL) if compress \
-        else codecs.PREDICTOR_NONE
+        # main + overview pyramid (payload reused across identical-pixel
+        # writes when the caller supplies an identity key)
+        plans = cache_key = None
+        if payload_key is not None:
+            cache_key = (payload_key, arr3.shape, arr3.dtype.str, tile_size,
+                         bool(compress), tuple(overview_levels or ()),
+                         _deflate_level())
+            plans = PAYLOAD_CACHE.get(cache_key)
+        if plans is None:
+            plans = build_payload(arr3, overview_levels, tile_size,
+                                  compress, num_threads)
+            if cache_key is not None:
+                PAYLOAD_CACHE.put(cache_key, plans)
+    return write_payload(path, plans, geotransform=geotransform, epsg=epsg,
+                         nodata=nodata, metadata=metadata,
+                         band_descriptions=band_descriptions,
+                         color_map=color_map)
 
-    # main + overview pyramid (payload reused across identical-pixel
-    # writes when the caller supplies an identity key)
-    plans = cache_key = None
-    if payload_key is not None:
-        cache_key = (payload_key, arr3.shape, arr3.dtype.str, tile_size,
-                     bool(compress), tuple(overview_levels or ()),
-                     _deflate_level())
-        plans = PAYLOAD_CACHE.get(cache_key)
-    if plans is None:
-        plans = [_IfdPlan(arr3, tile_size, compress, predictor, False)]
-        for f in (overview_levels or ()):
-            if w // f < 1 or h // f < 1:
-                continue
-            dec = _cubicspline_decimate(arr3, f) if is_float \
-                else _nearest_decimate(arr3, f)
-            plans.append(_IfdPlan(dec, tile_size, compress, predictor,
-                                  True))
-        with ThreadPoolExecutor(max_workers=num_threads) as pool:
-            for p in plans:
-                p.build_tiles(pool)
-        if cache_key is not None:
-            PAYLOAD_CACHE.put(cache_key, plans)
+
+def write_payload(path, plans, geotransform=None, epsg=None, nodata=None,
+                  metadata=None, band_descriptions=None, color_map=None):
+    """Lay out ``plans`` (a payload: ``build_payload``'s) with their tags
+    and write the COG to ``path``; the tags' arguments are
+    ``write_cog``'s."""
+    dtype = plans[0].dtype
+    compress = plans[0].compress
 
     gdal_meta_xml = _gdal_metadata_xml(metadata, band_descriptions)
     geokeys, geo_doubles = _geokey_directory(epsg)

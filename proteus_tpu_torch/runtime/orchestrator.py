@@ -9,12 +9,22 @@ copies of the JAX package's host modules); the ocean mask's seaward
 buffer, the DEM and landcover warps, the terrain shadow, LAND and the
 per-pixel chain run on ``device``. On a CUDA device the per-pixel chain is
 the fused CUDA kernels
-(K1 or K3, and K2 in 'cover' mode), on the CPU the plain PyTorch chain;
-all layers come back to the host once, after the chain.
+(K1 or K3, and K2 in 'cover' mode), on the CPU the plain PyTorch chain.
+Every layer comes back to the host once: DEM, SHAD and LAND as soon as
+they are final, the chain's layers after it.
+
+The layers' COGs are written on a save pool of the product run
+(``_LayerSaves``): the payloads of DEM, SHAD and LAND start as soon as
+their pixels are on the host, every file once the coverage metadata is
+known, and the main thread joins them all, in the reference's order,
+before it builds the VRT. The files are the same, byte for byte, as
+those of the save functions called one after another.
 
 Each product run is the tracer's span ``sas.product``; its stages are
-spans under their stage table's names, and each layer save a span
-``save <layer>`` inside 'layer saves (COG encode)'. With
+spans under their stage table's names, each layer save a span ``save
+<layer>`` on a pool thread under 'layer saves (COG encode)', each early
+payload a span ``payload <layer>``, and the wait for the pool
+``save.join``. With
 ``PROTEUS_TPU_TRACE_DIR`` set, the whole run is traced by
 ``runtime.profiling.device_trace`` (a ``torch.profiler`` trace holding
 every stage span, as ``proteus_tpu/runtime/orchestrator.py:502`` takes a
@@ -24,6 +34,7 @@ every stage span, as ``proteus_tpu/runtime/orchestrator.py:502`` takes a
 import functools
 import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,8 +59,8 @@ from proteus_tpu_torch.ops.wtr_kernel import (COUNTS, kernel_slices,
 from proteus_tpu_torch.runtime import ctables
 from proteus_tpu_torch.runtime import metadata as md_util
 from proteus_tpu_torch.runtime import product_writer as pw
-from proteus_tpu_torch.runtime.profiling import (TRACER, StageTimers,
-                                                device_trace)
+from proteus_tpu_torch.runtime.profiling import (COUNTERS, TRACER,
+                                                StageTimers, device_trace)
 from proteus_tpu_torch.version import VERSION as SOFTWARE_VERSION
 
 logger = logging.getLogger('dswx_hls')
@@ -64,6 +75,72 @@ def _mean_angle(meta_value):
 
 def _crop_margin(arr, margin):
     return arr[margin:-margin, margin:-margin]
+
+
+# the save pool's threads: a product's layer files are written side by
+# side, the DEFLATE of each still threaded within its own write
+_SAVE_WORKERS = min(4, os.cpu_count() or 1)
+
+
+class _LayerSaves:
+    """The save pool of one product run. ``early`` starts a layer's COG
+    payload (``pw.layer_payload``: pyramid, predictor, DEFLATE) as soon as
+    its pixels are final; ``file`` runs a save (layout, write, full
+    validation) once the metadata is final; ``join`` waits for the files
+    in the order they were submitted, raises the first failure, and only
+    then fills each file's output list, so the lists keep the reference's
+    order. Leaving the ``with`` block shuts the pool down and waits for
+    its threads, whatever raised. Each task is a span (``payload
+    <layer>``, ``save <layer>``) carried from the main thread, with its
+    wait in the queue as ``save.queued``; the counters ``save.early`` and
+    ``save.pooled`` count the payloads and the files."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(_SAVE_WORKERS,
+                                        thread_name_prefix='sas.save')
+        self._files = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        return False
+
+    def _submit(self, span, fn):
+        return self._pool.submit(TRACER.carry(TRACER.traced(span)(fn),
+                                              queued='save.queued'))
+
+    def early(self, layer, array):
+        """Start the payload of ``layer``'s host array ``array``; returns
+        its future."""
+        COUNTERS.add('save.early')
+        return self._submit(f'payload {layer}',
+                            functools.partial(pw.layer_payload, array))
+
+    def file(self, layer, save, *args, output_files_list=None,
+             payload=None, **kwargs):
+        """Run ``save(*args, **kwargs)`` on the pool with an output list
+        of its own, and with ``payload=`` the result of ``payload`` (an
+        ``early`` future) where one is given."""
+        COUNTERS.add('save.pooled')
+        files = []
+
+        def run():
+            if payload is not None:
+                # submitted before this task, so running or done already
+                kwargs['payload'] = payload.result()
+            save(*args, output_files_list=files, **kwargs)
+        self._files.append((self._submit(f'save {layer}', run), files,
+                            output_files_list))
+
+    def join(self):
+        with TRACER.span('save.join'):
+            for future, files, output_files_list in self._files:
+                future.result()
+                if output_files_list is not None:
+                    output_files_list.extend(files)
+            self._files = []
 
 
 def _traced_product_run(fn):
@@ -238,8 +315,7 @@ def generate_dswx_layers(input_list,
     scratch_files = []
     standalone_output_files = []
     vrt_member_files = []
-    dem = None
-    shadow_layer = None
+    dem = shadow_layer = shadow_host = landcover_host = None
 
     dswx_metadata_dict = md_util.get_dswx_metadata_dict(product_id,
                                                         product_version)
@@ -348,264 +424,273 @@ def generate_dswx_layers(input_list,
                 geotransform, projection, length, width, device=device)
             synchronize(device)
 
-    # ---- DEM warp + terrain shadow (device) ---------------------------------
-    if dem_file is not None:
-        logger.info(f'Preparing DEM file: {dem_file}')
-        with timers.stage('DEM warp'):
-            dem_with_margin = warp_to_grid_device(
-                dem_file, geotransform, projection, length, width,
-                resample_algorithm='cubic',
-                margin_in_pixels=C.DEM_MARGIN_IN_PIXELS, device=device)
-            synchronize(device)
-        with timers.stage('terrain shadow'):
-            if p['shadow_masking_algorithm'] == 'otsu':
-                shadow_with_margin = compute_otsu_shadow_layer_exact(
-                    dem_with_margin, sun_azimuth_angle,
-                    sun_elevation_angle,
-                    pixel_spacing_x=geotransform[1],
-                    pixel_spacing_y=geotransform[5])
-            else:
-                shadow_with_margin = compute_opera_shadow_layer_exact(
-                    dem_with_margin, sun_azimuth_angle,
-                    sun_elevation_angle, p['min_slope_angle'],
-                    p['max_sun_local_inc_angle'])
-            synchronize(device)
-        shadow_layer = _crop_margin(shadow_with_margin,
-                                    C.DEM_MARGIN_IN_PIXELS) \
-            .to(torch.uint8).contiguous()
-        dem = _crop_margin(dem_with_margin, C.DEM_MARGIN_IN_PIXELS)
+    # ---- the product's layer saves run on its own pool -------------------
+    with _LayerSaves() as saves:
+        payloads = {}
 
-    # ---- landcover (device warps + LAND) ------------------------------------
-    landcover_mask = None
-    if landcover_file is not None and worldcover_file is not None:
-        with timers.stage('landcover warps + LAND'):
-            logger.info('creating LAND layer combining Copernicus '
-                        'Landcover 100m and ESA WorldCover 10m maps')
-            if not os.path.isfile(landcover_file):
-                logger.error(f'ERROR file not found: {landcover_file}')
-            elif not os.path.isfile(worldcover_file):
-                logger.error(f'ERROR file not found: {worldcover_file}')
-            else:
-                cgls = warp_to_grid_device(
-                    landcover_file, geotransform, projection, length,
-                    width, resample_algorithm='nearest', device=device)
-                gt3 = (geotransform[0], geotransform[1] / 3, 0.0,
-                       geotransform[3], 0.0, geotransform[5] / 3)
-                wc3 = warp_to_grid_device(
-                    worldcover_file, gt3, projection, 3 * length,
-                    3 * width, resample_algorithm='nearest', device=device)
-                year = worldcover_year_of(worldcover_file,
-                                          worldcover_file_description)
-                landcover_mask = create_landcover_mask_arrays(
-                    cgls, wc3, C.LANDCOVER_MASK_TYPE,
-                    p['forest_mask_landcover_classes'],
-                    worldcover_year=year).contiguous()
-                del cgls, wc3
+        # ---- DEM warp + terrain shadow (device) -----------------------------
+        if dem_file is not None:
+            logger.info(f'Preparing DEM file: {dem_file}')
+            with timers.stage('DEM warp'):
+                dem_with_margin = warp_to_grid_device(
+                    dem_file, geotransform, projection, length, width,
+                    resample_algorithm='cubic',
+                    margin_in_pixels=C.DEM_MARGIN_IN_PIXELS, device=device)
                 synchronize(device)
+            # cropped on the host: a crop's copy would be made contiguous
+            # on the device first
+            dem = _crop_margin(to_host(dem_with_margin, 'chain'),
+                               C.DEM_MARGIN_IN_PIXELS)
+            if output_dem_layer is not None:
+                payloads['DEM'] = saves.early('DEM', dem)
+            with timers.stage('terrain shadow'):
+                if p['shadow_masking_algorithm'] == 'otsu':
+                    shadow_with_margin = compute_otsu_shadow_layer_exact(
+                        dem_with_margin, sun_azimuth_angle,
+                        sun_elevation_angle,
+                        pixel_spacing_x=geotransform[1],
+                        pixel_spacing_y=geotransform[5])
+                else:
+                    shadow_with_margin = compute_opera_shadow_layer_exact(
+                        dem_with_margin, sun_azimuth_angle,
+                        sun_elevation_angle, p['min_slope_angle'],
+                        p['max_sun_local_inc_angle'])
+                synchronize(device)
+            shadow_layer = _crop_margin(shadow_with_margin,
+                                        C.DEM_MARGIN_IN_PIXELS) \
+                .to(torch.uint8).contiguous()
+            shadow_host = to_host(shadow_layer, 'chain')
+            if output_shadow_layer:
+                payloads['SHAD'] = saves.early('SHAD', shadow_host)
 
-    # ---- the per-pixel chain (device) ---------------------------------------
-    chain_config = DswxChainConfig(
-        thresholds=hls_thresholds,
-        mask_adjacent_to_cloud_mode=p['mask_adjacent_to_cloud_mode'],
-        apply_aerosol_class_remapping=p['apply_aerosol_class_remapping'],
-        aerosol_not_water_fmask_values=tuple(
-            p['aerosol_not_water_to_high_conf_water_fmask_values']),
-        aerosol_moderate_conf_fmask_values=tuple(
-            p['aerosol_water_moderate_conf_to_high_conf_water_fmask_values']),
-        aerosol_psw_conservative_fmask_values=tuple(
-            p['aerosol_partial_surface_water_conservative_to_high_conf_water_fmask_values']),
-        aerosol_psw_aggressive_fmask_values=tuple(
-            p['aerosol_partial_surface_aggressive_to_high_conf_water_fmask_values']),
-        exclude_psw_aggressive_in_browse=bool(
-            p['exclude_psw_aggressive_in_browse']),
-        not_water_in_browse=p['not_water_in_browse'],
-        cloud_in_browse=p['cloud_in_browse'],
-        snow_in_browse=p['snow_in_browse'],
-    )
-
-    # int16 bands, or float32 ones with flag_offset_and_scale_inputs
-    where = device.type
-    if device.type == 'cuda':
-        where += ' (cuda kernels ' + ' + '.join(kernel_slices(
-            blue.dtype == np.float32, p['mask_adjacent_to_cloud_mode'])) + ')'
-    logger.info(f'running the fused DSWx device chain on {where}')
-    with timers.stage('device chain (compile+run)'):
-        def to_dev(a):
-            return to_device(np.ascontiguousarray(a), device, 'chain')
-        bands = [to_dev(a) for a in (blue, green, red, nir, swir1, swir2)]
-        fmask_d = to_dev(fmask)
-        invalid_d = to_dev(invalid_array)
-        # the layers and the coverage counts, which the kernel adds up as
-        # it goes (the reference's jitted stats, orchestrator.py:477-495)
-        out = wtr_layers(*bands, fmask_d, invalid_d, chain_config,
-                         ocean=ocean_mask, shadow=shadow_layer,
-                         landcover=landcover_mask,
-                         compute_browse=output_browse_image is not None)
-        del bands, fmask_d, invalid_d
-        synchronize(device)
-    with timers.stage('device->host transfer'):
-        # the three counts in one read
-        n_valid, n_cloud_and_valid, n_not_ocean = torch.stack(
-            [out.pop(k) for k in COUNTS]).tolist()
-        out = {k: to_host(v, 'chain') for k, v in out.items()}
-        if dem is not None:
-            dem = to_host(dem, 'chain')
-            shadow_layer = to_host(shadow_layer, 'chain')
+        # ---- landcover (device warps + LAND) --------------------------------
+        landcover_mask = None
+        if landcover_file is not None and worldcover_file is not None:
+            with timers.stage('landcover warps + LAND'):
+                logger.info('creating LAND layer combining Copernicus '
+                            'Landcover 100m and ESA WorldCover 10m maps')
+                if not os.path.isfile(landcover_file):
+                    logger.error(f'ERROR file not found: {landcover_file}')
+                elif not os.path.isfile(worldcover_file):
+                    logger.error(f'ERROR file not found: {worldcover_file}')
+                else:
+                    cgls = warp_to_grid_device(
+                        landcover_file, geotransform, projection, length,
+                        width, resample_algorithm='nearest', device=device)
+                    gt3 = (geotransform[0], geotransform[1] / 3, 0.0,
+                           geotransform[3], 0.0, geotransform[5] / 3)
+                    wc3 = warp_to_grid_device(
+                        worldcover_file, gt3, projection, 3 * length,
+                        3 * width, resample_algorithm='nearest',
+                        device=device)
+                    year = worldcover_year_of(worldcover_file,
+                                              worldcover_file_description)
+                    landcover_mask = create_landcover_mask_arrays(
+                        cgls, wc3, C.LANDCOVER_MASK_TYPE,
+                        p['forest_mask_landcover_classes'],
+                        worldcover_year=year).contiguous()
+                    del cgls, wc3
+                    synchronize(device)
         if landcover_mask is not None:
-            landcover_mask = to_host(landcover_mask, 'chain')
+            landcover_host = to_host(landcover_mask, 'chain')
+            if output_landcover:
+                payloads['LAND'] = saves.early('LAND', landcover_host)
 
-    # ---- coverage statistics -> metadata ------------------------------------
-    total_number_of_pixels = length * width
-    spatial_coverage = int(100 * float(n_valid) / total_number_of_pixels)
-    cloud_coverage = (0 if n_valid == 0
-                      else int(100 * float(n_cloud_and_valid) / n_valid))
-    spatial_coverage_after_ocean = (
-        0 if n_not_ocean == 0
-        else int(100 * float(n_valid) / n_not_ocean))
-    logger.info('data coverage:')
-    logger.info(f'    spatial coverage [%]:  {spatial_coverage}')
-    logger.info(f'    spatial coverage after ocean masking [%]:'
-                f' {spatial_coverage_after_ocean}')
-    logger.info(f'    cloud coverage [%]:  {cloud_coverage}')
-    dswx_metadata_dict['SPATIAL_COVERAGE'] = spatial_coverage
-    dswx_metadata_dict['SPATIAL_COVERAGE_EXCLUDING_MASKED_OCEAN'] = \
-        spatial_coverage_after_ocean
-    dswx_metadata_dict['CLOUD_COVERAGE'] = cloud_coverage
+        # ---- the per-pixel chain (device) -----------------------------------
+        chain_config = DswxChainConfig(
+            thresholds=hls_thresholds,
+            mask_adjacent_to_cloud_mode=p['mask_adjacent_to_cloud_mode'],
+            apply_aerosol_class_remapping=p['apply_aerosol_class_remapping'],
+            aerosol_not_water_fmask_values=tuple(
+                p['aerosol_not_water_to_high_conf_water_fmask_values']),
+            aerosol_moderate_conf_fmask_values=tuple(
+                p['aerosol_water_moderate_conf_to_high_conf_water_fmask_values']),
+            aerosol_psw_conservative_fmask_values=tuple(
+                p['aerosol_partial_surface_water_conservative_to_high_conf_water_fmask_values']),
+            aerosol_psw_aggressive_fmask_values=tuple(
+                p['aerosol_partial_surface_aggressive_to_high_conf_water_fmask_values']),
+            exclude_psw_aggressive_in_browse=bool(
+                p['exclude_psw_aggressive_in_browse']),
+            not_water_in_browse=p['not_water_in_browse'],
+            cloud_in_browse=p['cloud_in_browse'],
+            snow_in_browse=p['snow_in_browse'],
+        )
 
-    # ---- layer saves (reference order; dswx_hls.py:5138-5397) ---------------
-    def save(layer):
-        return TRACER.span(f'save {layer}')
+        # int16 bands, or float32 ones with flag_offset_and_scale_inputs
+        where = device.type
+        if device.type == 'cuda':
+            where += ' (cuda kernels ' + ' + '.join(kernel_slices(
+                blue.dtype == np.float32,
+                p['mask_adjacent_to_cloud_mode'])) + ')'
+        logger.info(f'running the fused DSWx device chain on {where}')
+        with timers.stage('device chain (compile+run)'):
+            def to_dev(a):
+                return to_device(np.ascontiguousarray(a), device, 'chain')
+            bands = [to_dev(a) for a in (blue, green, red, nir, swir1, swir2)]
+            fmask_d = to_dev(fmask)
+            invalid_d = to_dev(invalid_array)
+            # the layers and the coverage counts, which the kernel adds up
+            # as it goes (the reference's jitted stats,
+            # orchestrator.py:477-495)
+            out = wtr_layers(*bands, fmask_d, invalid_d, chain_config,
+                             ocean=ocean_mask, shadow=shadow_layer,
+                             landcover=landcover_mask,
+                             compute_browse=output_browse_image is not None)
+            del bands, fmask_d, invalid_d
+            synchronize(device)
+        with timers.stage('device->host transfer'):
+            # the three counts in one read
+            n_valid, n_cloud_and_valid, n_not_ocean = torch.stack(
+                [out.pop(k) for k in COUNTS]).tolist()
+            out = {k: to_host(v, 'chain') for k, v in out.items()}
 
-    with timers.stage('layer saves (COG encode)'):
-        if dem is not None and output_dem_layer is not None:
-            with save('DEM'):
-                pw.save_array(dem, output_dem_layer, dswx_metadata_dict,
-                              geotransform, projection,
-                              description=C.BAND_DESCRIPTION_DICT['DEM'],
-                              output_files_list=vrt_member_files,
-                              no_data_value=np.nan)
-        if shadow_layer is not None and output_shadow_layer:
-            with save('SHAD'):
-                pw.save_array(shadow_layer, output_shadow_layer,
-                              dswx_metadata_dict, geotransform, projection,
-                              description=C.BAND_DESCRIPTION_DICT['SHAD'],
-                              output_files_list=vrt_member_files,
-                              ctable=ctables.get_binary_mask_ctable())
-        if landcover_mask is not None and output_landcover:
-            with save('LAND'):
-                pw.save_array(landcover_mask, output_landcover,
-                              dswx_metadata_dict, geotransform, projection,
-                              description=C.BAND_DESCRIPTION_DICT['LAND'],
-                              output_files_list=vrt_member_files,
-                              ctable=ctables.get_landcover_mask_ctable(),
-                              no_data_value=C.DSWX_HLS_LANDCOVER_CLASSES_DICT[
-                                  'fill_value'])
+        # ---- coverage statistics -> metadata --------------------------------
+        total_number_of_pixels = length * width
+        spatial_coverage = int(100 * float(n_valid) / total_number_of_pixels)
+        cloud_coverage = (0 if n_valid == 0
+                          else int(100 * float(n_cloud_and_valid) / n_valid))
+        spatial_coverage_after_ocean = (
+            0 if n_not_ocean == 0
+            else int(100 * float(n_valid) / n_not_ocean))
+        logger.info('data coverage:')
+        logger.info(f'    spatial coverage [%]:  {spatial_coverage}')
+        logger.info(f'    spatial coverage after ocean masking [%]:'
+                    f' {spatial_coverage_after_ocean}')
+        logger.info(f'    cloud coverage [%]:  {cloud_coverage}')
+        dswx_metadata_dict['SPATIAL_COVERAGE'] = spatial_coverage
+        dswx_metadata_dict['SPATIAL_COVERAGE_EXCLUDING_MASKED_OCEAN'] = \
+            spatial_coverage_after_ocean
+        dswx_metadata_dict['CLOUD_COVERAGE'] = cloud_coverage
 
-        invalid_ind = np.where(invalid_array)
-        if output_rgb_file:
-            with save('RGB'):
-                pw.save_output_rgb_file(
-                    red, green, blue, output_rgb_file, offset_dict,
-                    scale_dict, flag_offset_and_scale_inputs,
-                    dswx_metadata_dict, geotransform, projection,
-                    invalid_ind=invalid_ind,
-                    output_files_list=standalone_output_files)
-        if output_infrared_rgb_file:
-            with save('infrared RGB'):
-                pw.save_output_rgb_file(
-                    swir1, nir, red, output_infrared_rgb_file, offset_dict,
-                    scale_dict, flag_offset_and_scale_inputs,
-                    dswx_metadata_dict, geotransform, projection,
-                    invalid_ind=invalid_ind,
-                    output_files_list=standalone_output_files,
-                    flag_infrared=True)
+        # ---- layer saves (reference order; dswx_hls.py:5138-5397) -----------
+        # each file on the pool with its own copy of the final metadata
+        def md():
+            return dict(dswx_metadata_dict)
 
-        if output_diagnostic_layer:
-            with save('DIAG'):
-                pw.save_array(out['DIAG'], output_diagnostic_layer,
-                              dswx_metadata_dict, geotransform, projection,
-                              description=C.BAND_DESCRIPTION_DICT['DIAG'],
-                              output_files_list=vrt_member_files,
-                              no_data_value=
-                              C.DIAGNOSTIC_LAYER_NO_DATA_BINARY_REPR)
-        if output_non_masked_dswx:
-            with save('WTR-1'):
-                pw.save_dswx_product(out['WTR-1'], 'WTR-1',
-                                     output_non_masked_dswx,
-                                     dswx_metadata_dict, geotransform,
-                                     projection,
-                                     output_files_list=vrt_member_files)
-        if output_shadow_masked_dswx is not None:
-            with save('WTR-2'):
-                pw.save_dswx_product(out['WTR-2'], 'WTR-2',
-                                     output_shadow_masked_dswx,
-                                     dswx_metadata_dict, geotransform,
-                                     projection,
-                                     output_files_list=vrt_member_files)
-        if output_interpreted_band:
-            with save('WTR'):
-                pw.save_dswx_product(out['WTR'], 'WTR',
-                                     output_interpreted_band,
-                                     dswx_metadata_dict, geotransform,
-                                     projection,
-                                     output_files_list=vrt_member_files)
+        with timers.stage('layer saves (COG encode)'):
+            if dem is not None and output_dem_layer is not None:
+                saves.file('DEM', pw.save_array, dem, output_dem_layer, md(),
+                           geotransform, projection,
+                           description=C.BAND_DESCRIPTION_DICT['DEM'],
+                           output_files_list=vrt_member_files,
+                           no_data_value=np.nan, payload=payloads['DEM'])
+            if shadow_host is not None and output_shadow_layer:
+                saves.file('SHAD', pw.save_array, shadow_host,
+                           output_shadow_layer, md(), geotransform,
+                           projection,
+                           description=C.BAND_DESCRIPTION_DICT['SHAD'],
+                           output_files_list=vrt_member_files,
+                           ctable=ctables.get_binary_mask_ctable(),
+                           payload=payloads['SHAD'])
+            if landcover_host is not None and output_landcover:
+                saves.file('LAND', pw.save_array, landcover_host,
+                           output_landcover, md(), geotransform, projection,
+                           description=C.BAND_DESCRIPTION_DICT['LAND'],
+                           output_files_list=vrt_member_files,
+                           ctable=ctables.get_landcover_mask_ctable(),
+                           no_data_value=C.DSWX_HLS_LANDCOVER_CLASSES_DICT[
+                               'fill_value'],
+                           payload=payloads['LAND'])
 
-        if output_browse_image:
-            with save('BROWSE'):
+            invalid_ind = np.where(invalid_array)
+            if output_rgb_file:
+                saves.file('RGB', pw.save_output_rgb_file,
+                           red, green, blue, output_rgb_file, offset_dict,
+                           scale_dict, flag_offset_and_scale_inputs, md(),
+                           geotransform, projection,
+                           invalid_ind=invalid_ind,
+                           output_files_list=standalone_output_files)
+            if output_infrared_rgb_file:
+                saves.file('infrared RGB', pw.save_output_rgb_file,
+                           swir1, nir, red, output_infrared_rgb_file,
+                           offset_dict, scale_dict,
+                           flag_offset_and_scale_inputs, md(),
+                           geotransform, projection,
+                           invalid_ind=invalid_ind,
+                           output_files_list=standalone_output_files,
+                           flag_infrared=True)
+
+            if output_diagnostic_layer:
+                saves.file('DIAG', pw.save_array, out['DIAG'],
+                           output_diagnostic_layer, md(), geotransform,
+                           projection,
+                           description=C.BAND_DESCRIPTION_DICT['DIAG'],
+                           output_files_list=vrt_member_files,
+                           no_data_value=
+                           C.DIAGNOSTIC_LAYER_NO_DATA_BINARY_REPR)
+            if output_non_masked_dswx:
+                saves.file('WTR-1', pw.save_dswx_product, out['WTR-1'],
+                           'WTR-1', output_non_masked_dswx, md(),
+                           geotransform, projection,
+                           output_files_list=vrt_member_files)
+            if output_shadow_masked_dswx is not None:
+                saves.file('WTR-2', pw.save_dswx_product, out['WTR-2'],
+                           'WTR-2', output_shadow_masked_dswx, md(),
+                           geotransform, projection,
+                           output_files_list=vrt_member_files)
+            if output_interpreted_band:
+                saves.file('WTR', pw.save_dswx_product, out['WTR'], 'WTR',
+                           output_interpreted_band, md(), geotransform,
+                           projection, output_files_list=vrt_member_files)
+
+            if output_browse_image:
                 browse_ctable = ctables.get_browse_ctable(
                     flag_collapse_wtr_classes=C.FLAG_COLLAPSE_WTR_CLASSES,
                     not_water_color=p['not_water_in_browse'],
                     cloud_color=p['cloud_in_browse'],
                     snow_color=p['snow_in_browse'])
                 browse_geotiff = output_browse_image.replace('.png', '.tif')
-                standalone_output_files.append(browse_geotiff)
-                pw.save_array(out['BROWSE'], browse_geotiff,
-                              dswx_metadata_dict, geotransform, projection,
-                              ctable=browse_ctable,
-                              no_data_value=C.UINT8_FILL_VALUE)
-                geotiff2png(browse_geotiff, output_browse_image,
-                            output_height=p['browse_image_height'],
-                            output_width=p['browse_image_width'],
-                            logger_=logger, rgba_ctable=browse_ctable)
-                standalone_output_files.append(output_browse_image)
+                browse_md = md()
 
-        if output_cloud_layer:
-            with save('CLOUD'):
-                pw.save_cloud_layer(
-                    out['CLOUD'], output_cloud_layer, dswx_metadata_dict,
-                    geotransform, projection,
-                    description=C.BAND_DESCRIPTION_DICT['CLOUD'],
-                    output_files_list=vrt_member_files)
-        if output_binary_water:
-            with save('BWTR'):
-                pw.save_binary_water(
-                    out['BWTR'], output_binary_water, dswx_metadata_dict,
-                    geotransform, projection,
-                    description=C.BAND_DESCRIPTION_DICT['BWTR'],
-                    output_files_list=vrt_member_files)
-        if output_confidence_layer:
-            with save('CONF'):
-                pw.save_array(out['CONF'], output_confidence_layer,
-                              dswx_metadata_dict, geotransform, projection,
-                              description=C.BAND_DESCRIPTION_DICT['CONF'],
-                              output_files_list=vrt_member_files,
-                              ctable=ctables.get_confidence_layer_ctable(),
-                              no_data_value=C.UINT8_FILL_VALUE)
+                def save_browse(output_files_list):
+                    output_files_list.append(browse_geotiff)
+                    pw.save_array(out['BROWSE'], browse_geotiff, browse_md,
+                                  geotransform, projection,
+                                  ctable=browse_ctable,
+                                  no_data_value=C.UINT8_FILL_VALUE)
+                    geotiff2png(browse_geotiff, output_browse_image,
+                                output_height=p['browse_image_height'],
+                                output_width=p['browse_image_width'],
+                                logger_=logger, rgba_ctable=browse_ctable)
+                    output_files_list.append(output_browse_image)
+                saves.file('BROWSE', save_browse,
+                           output_files_list=standalone_output_files)
 
-        if output_file and not output_file.endswith('.vrt'):
-            with save('product'):
-                pw.save_dswx_product(
-                    out['WTR'], 'WTR', output_file, dswx_metadata_dict,
-                    geotransform, projection, bwtr=out['BWTR'],
-                    diag=out['DIAG'], wtr_1=out['WTR-1'],
-                    wtr_2=out['WTR-2'], land=landcover_mask,
-                    shad=shadow_layer, cloud=out['CLOUD'], dem=dem,
-                    output_files_list=standalone_output_files)
-        elif output_file:
-            with save('VRT'):
-                build_vrt(output_file, vrt_member_files)
-                vrt_member_files.append(output_file)
-                logger.info(f'file saved: {output_file}')
+            if output_cloud_layer:
+                saves.file('CLOUD', pw.save_cloud_layer, out['CLOUD'],
+                           output_cloud_layer, md(), geotransform,
+                           projection,
+                           description=C.BAND_DESCRIPTION_DICT['CLOUD'],
+                           output_files_list=vrt_member_files)
+            if output_binary_water:
+                saves.file('BWTR', pw.save_binary_water, out['BWTR'],
+                           output_binary_water, md(), geotransform,
+                           projection,
+                           description=C.BAND_DESCRIPTION_DICT['BWTR'],
+                           output_files_list=vrt_member_files)
+            if output_confidence_layer:
+                saves.file('CONF', pw.save_array, out['CONF'],
+                           output_confidence_layer, md(), geotransform,
+                           projection,
+                           description=C.BAND_DESCRIPTION_DICT['CONF'],
+                           output_files_list=vrt_member_files,
+                           ctable=ctables.get_confidence_layer_ctable(),
+                           no_data_value=C.UINT8_FILL_VALUE)
+
+            if output_file and not output_file.endswith('.vrt'):
+                saves.file('product', pw.save_dswx_product,
+                           out['WTR'], 'WTR', output_file, md(),
+                           geotransform, projection, bwtr=out['BWTR'],
+                           diag=out['DIAG'], wtr_1=out['WTR-1'],
+                           wtr_2=out['WTR-2'], land=landcover_host,
+                           shad=shadow_host, cloud=out['CLOUD'], dem=dem,
+                           output_files_list=standalone_output_files)
+            saves.join()
+            if output_file and output_file.endswith('.vrt'):
+                with TRACER.span('save VRT'):
+                    build_vrt(output_file, vrt_member_files)
+                    vrt_member_files.append(output_file)
+                    logger.info(f'file saved: {output_file}')
 
     logger.info('removing temporary files:')
     for filename in scratch_files:

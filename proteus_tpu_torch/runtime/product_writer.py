@@ -14,7 +14,7 @@ import numpy as np
 
 from proteus_tpu_torch.core import constants as C
 from proteus_tpu_torch.geo.crs import CRS
-from proteus_tpu_torch.io.cog import write_cog
+from proteus_tpu_torch.io.cog import build_payload, write_cog
 from proteus_tpu_torch.io.validate_cog import validate_cog
 from proteus_tpu_torch.runtime import ctables
 
@@ -71,15 +71,25 @@ def collapse_wtr_classes_host(layer):
     return lut[layer]
 
 
+def layer_payload(input_array):
+    """The COG pixel payload of a layer (``io.cog.build_payload``: the
+    overview pyramid and the tiles after the predictor and DEFLATE),
+    which ``save_array(..., payload=)`` then lays out with its tags. A
+    strided array (a crop) is made contiguous once, not by each level of
+    the pyramid."""
+    return build_payload(np.ascontiguousarray(input_array))
+
+
 def save_array(input_array, output_file, dswx_metadata_dict, geotransform,
                projection, description=None, scratch_dir='.',
                output_files_list=None, ctable=None, no_data_value=None,
-               payload_key=None):
+               payload_key=None, payload=None):
     """Save one generic DSWx-HLS layer as a COG.
 
     payload_key: optional pixel-payload identity key forwarded to
     write_cog's payload cache (campaign DEM layers are identical per
-    grid; only the metadata tags differ between products)."""
+    grid; only the metadata tags differ between products).
+    payload: ``layer_payload(input_array)``, built beforehand."""
     del scratch_dir  # single-pass writer needs no scratch space
     _makedirs(output_file)
     arr = np.asarray(input_array)
@@ -90,7 +100,7 @@ def save_array(input_array, output_file, dswx_metadata_dict, geotransform,
               metadata=_str_metadata(dswx_metadata_dict),
               band_descriptions=band_desc,
               color_map=ctables.to_rgb_map(ctable) if ctable else None,
-              payload_key=payload_key)
+              payload_key=payload_key, payload=payload)
     _finish(output_file, output_files_list)
 
 

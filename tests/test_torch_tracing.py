@@ -10,7 +10,8 @@ their sites, and the spans it stamps on the profiler's trace.
   ``counting_misses`` counts, and its spans place every read and write
   under the main thread's batches;
 - a product run keeps the SAS breakdown's stage names and order, with its
-  stages, saves and COG encodes as nested spans;
+  stages, its saves on the save pool, their early payloads, the join and
+  the COG encodes as nested spans;
 - the copy counters count a crossing of devices and nothing else; the
   COG payload cache and the kernel builds count theirs;
 - an anchored capture stamps each span of its thread on the profiler's
@@ -459,10 +460,21 @@ def test_product_run_keeps_its_breakdown_and_nests_its_spans(grid,
         (s,) = named[stage]
         assert s.parent == product.span_id and s.item == 'tile_0'
     (saves,) = named['layer saves (COG encode)']
-    order = sorted((s for s in got.spans if s.name.startswith('save ')),
-                   key=lambda s: s.start_ns)
-    assert [s.name for s in order] == SAS_SAVES
-    assert all(s.parent == saves.span_id for s in order)
+    # the saves run on the product's save pool, carried from the stage;
+    # the payloads of DEM, SHAD and LAND start before it, under the product
+    pooled = [s for s in got.spans if s.name.startswith('save ')]
+    assert sorted(s.name for s in pooled) == sorted(SAS_SAVES)
+    assert all(s.parent == saves.span_id and s.thread != got.thread
+               for s in pooled)
+    payloads = [s for s in got.spans if s.name.startswith('payload ')]
+    assert sorted(s.name for s in payloads) == \
+        ['payload DEM', 'payload LAND', 'payload SHAD']
+    assert all(s.parent == product.span_id and s.thread != got.thread
+               and s.end_ns <= saves.end_ns for s in payloads)
+    (join,) = named['save.join']
+    assert join.parent == saves.span_id and join.thread == got.thread
+    assert all(s.end_ns <= join.end_ns for s in pooled)
+    assert len(named['save.queued']) == len(pooled) + len(payloads)
     encodes = named['cog.encode']
     assert len(encodes) == len(SAS_SAVES)
     assert all(spans[e.parent].name.startswith('save ') for e in encodes)
