@@ -19,6 +19,18 @@ pixel whose device value sits inside the ambiguity band of a floor, a tap
 selection or an f32 rounding boundary is re-evaluated on the host with
 the float64 pipeline of ``warp_to_grid``, so the result is bit-identical
 to the host warp.
+
+The host halves of both warps are stages (``STAGE_TIMES.stage``: a
+tracer span, and a row of the campaign's stage table when it is on):
+``warp.read`` (the source window worked out and read), ``warp.lattice``
+(the coordinate lattice; on the device path also its double-float split
+and its copy to the device), ``warp.source`` (the validity mask, the
+cast and, on the device path, the source's copy) and ``warp.redecide``
+(the float64 re-evaluation of the device's ambiguous pixels). The
+counters ``warp.source_bytes`` (the window as decoded: rows x columns x
+item size) and ``warp.ambiguous_px`` (the pixels re-decided) are always
+on. No stage name starts with ``read_`` or ``write_``: the campaign's
+``read_*`` stages around the warps are summed by that prefix.
 """
 
 import logging
@@ -32,6 +44,7 @@ from proteus_tpu_torch.device import to_device, to_host
 from proteus_tpu_torch.geo.crs import CRS, transform_points
 from proteus_tpu_torch.io.tiff import TiffReader
 from proteus_tpu_torch.ops import warp_kernel
+from proteus_tpu_torch.runtime.profiling import COUNTERS, STAGE_TIMES
 
 logger = logging.getLogger('dswx_hls')
 
@@ -156,6 +169,17 @@ def _resolve_window(src, u, v, radius):
     return r0, c0, max(r1 - r0, 0), max(c1 - c0, 0)
 
 
+def _read_source(src, window):
+    """The pixels of ``window`` (row0, col0, height, width) of ``src``,
+    its first band, counted as ``warp.source_bytes``."""
+    data = src.reader.read(window=window)
+    if data.ndim == 3:
+        data = data[:, :, 0]
+    COUNTERS.add('warp.source_bytes',
+                 data.shape[0] * data.shape[1] * data.itemsize)
+    return data
+
+
 def _gather(data, valid, rows, cols, wraps, width):
     h, w = data.shape
     if wraps:
@@ -210,47 +234,49 @@ def warp_to_grid(input_file, geotransform, projection, length, width,
             raise ValueError(
                 f'unsupported resample algorithm: {resample_algorithm}')
 
-        # coarse boundary sweep to find the needed source window
-        bj = np.linspace(0, out_w, 256)
-        bi = np.linspace(0, out_h, 256)
-        edge_j = np.concatenate([bj, bj, np.zeros_like(bi),
-                                 np.full_like(bi, out_w)])
-        edge_i = np.concatenate([np.zeros_like(bj),
-                                 np.full_like(bj, out_h), bi, bi])
-        ex = tx0 + edge_j * dx
-        ey = ty0 + edge_i * dy
-        sx, sy = transform_points(tile_crs, src.crs, ex, ey)
-        eu, ev = src.pixel_coords(sx, sy)
-        r0, c0, wh, ww = _resolve_window(src, eu, ev, radius)
-        if wh == 0 or ww == 0:
-            fill = src.nodata if src.nodata is not None else 0
-            out = np.full((out_h, out_w), fill)
-            return out.astype(dtype or src.reader.dtype)
+        with STAGE_TIMES.stage('warp.read'):
+            # coarse boundary sweep to find the needed source window
+            bj = np.linspace(0, out_w, 256)
+            bi = np.linspace(0, out_h, 256)
+            edge_j = np.concatenate([bj, bj, np.zeros_like(bi),
+                                     np.full_like(bi, out_w)])
+            edge_i = np.concatenate([np.zeros_like(bj),
+                                     np.full_like(bj, out_h), bi, bi])
+            ex = tx0 + edge_j * dx
+            ey = ty0 + edge_i * dy
+            sx, sy = transform_points(tile_crs, src.crs, ex, ey)
+            eu, ev = src.pixel_coords(sx, sy)
+            r0, c0, wh, ww = _resolve_window(src, eu, ev, radius)
+            if wh == 0 or ww == 0:
+                fill = src.nodata if src.nodata is not None else 0
+                out = np.full((out_h, out_w), fill)
+                return out.astype(dtype or src.reader.dtype)
 
-        data = src.reader.read(window=(r0, c0, wh, ww))
-        if data.ndim == 3:
-            data = data[:, :, 0]
+            data = _read_source(src, (r0, c0, wh, ww))
         out_dtype = dtype or data.dtype
         nodata = src.nodata
-        if nodata is not None and np.isnan(nodata):
-            valid = ~np.isnan(data.astype(np.float64))
-        elif nodata is not None:
-            valid = data != nodata
-        else:
-            valid = np.ones(data.shape, dtype=bool)
+        with STAGE_TIMES.stage('warp.source'):
+            if nodata is not None and np.isnan(nodata):
+                valid = ~np.isnan(data.astype(np.float64))
+            elif nodata is not None:
+                valid = data != nodata
+            else:
+                valid = np.ones(data.shape, dtype=bool)
+            fdata = data.astype(np.float64)
+            all_valid = bool(valid.all())
         fill = nodata if nodata is not None else 0
 
         logger.info(f'    relocating file: {input_file}'
                     f' ({resample_algorithm}, window {wh}x{ww})')
 
         out = np.full((out_h, out_w), fill, dtype=np.float64)
-        fdata = data.astype(np.float64)
-        all_valid = bool(valid.all())
 
         grid_tx = None
         if transformer == 'grid':
-            grid_tx = GridTransformer(tile_crs, src.crs, tx0, ty0, dx, dy,
-                                      out_h, out_w, spacing=grid_spacing)
+            with STAGE_TIMES.stage('warp.lattice'):
+                grid_tx = GridTransformer(tile_crs, src.crs, tx0, ty0, dx,
+                                          dy, out_h, out_w,
+                                          spacing=grid_spacing)
 
         for row0 in range(0, out_h, chunk_rows):
             rows = min(chunk_rows, out_h - row0)
@@ -764,57 +790,63 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
     src = SourceRaster(input_file)
     try:
         radius = _KERNEL_RADIUS[resample_algorithm]
-        bj = np.linspace(0, out_w, 256)
-        bi = np.linspace(0, out_h, 256)
-        ej = np.concatenate([bj, bj, np.zeros_like(bi),
-                             np.full_like(bi, out_w)])
-        ei = np.concatenate([np.zeros_like(bj), np.full_like(bj, out_h),
-                             bi, bi])
-        sx, sy = transform_points(tile_crs, src.crs, tx0 + ej * dx,
-                                  ty0 + ei * dy)
-        eu, ev = src.pixel_coords(sx, sy)
-        r0, c0, wh, ww = _resolve_window(src, eu, ev, radius)
         nodata = src.nodata
         fill = nodata if nodata is not None else 0
         out_dtype = np.dtype(dtype or src.reader.dtype)
-        if wh == 0 or ww == 0:
-            return torch.full((out_h, out_w), fill,
-                              dtype=torch_dtype(out_dtype), device=device)
-
-        data = src.reader.read(window=(r0, c0, wh, ww))
-        if data.ndim == 3:
-            data = data[:, :, 0]
+        with STAGE_TIMES.stage('warp.read'):
+            bj = np.linspace(0, out_w, 256)
+            bi = np.linspace(0, out_h, 256)
+            ej = np.concatenate([bj, bj, np.zeros_like(bi),
+                                 np.full_like(bi, out_w)])
+            ei = np.concatenate([np.zeros_like(bj), np.full_like(bj, out_h),
+                                 bi, bi])
+            sx, sy = transform_points(tile_crs, src.crs, tx0 + ej * dx,
+                                      ty0 + ei * dy)
+            eu, ev = src.pixel_coords(sx, sy)
+            r0, c0, wh, ww = _resolve_window(src, eu, ev, radius)
+            if wh == 0 or ww == 0:
+                return torch.full((out_h, out_w), fill,
+                                  dtype=torch_dtype(out_dtype),
+                                  device=device)
+            data = _read_source(src, (r0, c0, wh, ww))
 
         # float64 lattice of window-relative source pixel coordinates,
         # continuous across the antimeridian (the gather wraps per pixel)
-        tx = GridTransformer(tile_crs, src.crs, tx0, ty0, dx, dy, out_h,
-                             out_w, spacing=grid_spacing)
-        sx0, sdx, _, sy0, _, sdy = src.gt
-        u_hi, u_lo = _dd_split((tx.sx - sx0) / sdx - c0)
-        v_hi, v_lo = _dd_split((tx.sy - sy0) / sdy - r0)
-        lat = tuple(to_device(a, device, 'warp_lattice')
-                    for a in (u_hi, u_lo, v_hi, v_lo))
+        with STAGE_TIMES.stage('warp.lattice'):
+            tx = GridTransformer(tile_crs, src.crs, tx0, ty0, dx, dy, out_h,
+                                 out_w, spacing=grid_spacing)
+            sx0, sdx, _, sy0, _, sdy = src.gt
+            u_hi, u_lo = _dd_split((tx.sx - sx0) / sdx - c0)
+            v_hi, v_lo = _dd_split((tx.sy - sy0) / sdy - r0)
+            lat = tuple(to_device(a, device, 'warp_lattice')
+                        for a in (u_hi, u_lo, v_hi, v_lo))
         wraps = src.wraps and c0 == 0 and ww == src.width
 
-        if nodata is not None and np.isnan(nodata):
-            valid = ~np.isnan(data.astype(np.float64))
-        elif nodata is not None:
-            valid = data != nodata
-        else:
-            valid = None
+        with STAGE_TIMES.stage('warp.source'):
+            if nodata is not None and np.isnan(nodata):
+                valid = ~np.isnan(data.astype(np.float64))
+            elif nodata is not None:
+                valid = data != nodata
+            else:
+                valid = None
+            kernel_input = data if resample_algorithm == 'nearest' else \
+                data.astype(np.float32)
+            all_valid = valid is None or bool(valid.all())
+            source = to_device(np.ascontiguousarray(kernel_input), device,
+                               'warp_source')
+            source_valid = None if all_valid else \
+                to_device(valid, device, 'warp_source')
 
         is_float_fill = isinstance(fill, float) and np.isnan(fill)
-        kernel_input = data if resample_algorithm == 'nearest' else \
-            data.astype(np.float32)
-        all_valid = valid is None or bool(valid.all())
         out, amb = device_resample(
-            to_device(np.ascontiguousarray(kernel_input), device,
-                      'warp_source'),
-            None if all_valid else to_device(valid, device, 'warp_source'),
-            lat, grid_spacing, out_h, out_w, resample_algorithm,
+            source, source_valid, lat, grid_spacing, out_h, out_w,
+            resample_algorithm,
             float(fill) if (is_float_fill or
                             resample_algorithm != 'nearest') else fill,
             wraps=wraps, full_width=ww)
+        # the window's device copy is not needed past the kernel: free it
+        # before the host re-decision, as the readers warp side by side
+        del source, source_valid
         to_int = out_dtype.kind in 'ui' and out.dtype.is_floating_point
         if to_int and radius > 0:
             # kernel value near a half-integer: the f32 intermediate can
@@ -826,31 +858,33 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
             out = torch.clamp(torch.round(out), info.min, info.max)
         flat = torch.nonzero(amb.reshape(-1)).reshape(-1)
         if flat.numel():
+            COUNTERS.add('warp.ambiguous_px', flat.numel())
             # float64 host re-evaluation of the ambiguous pixels,
             # replicating warp_to_grid's chunk pipeline (warp.py:911-942)
-            flat_np = to_host(flat, 'warp_ambiguous')
-            ii = (flat_np // out_w).astype(np.float64)
-            jj = (flat_np % out_w).astype(np.float64)
-            hsx, hsy = tx(ii, jj)
-            hu, hv = src.pixel_coords(hsx, hsy)
-            hu = hu - c0
-            hv = hv - r0
-            rlo = max(int(np.floor(np.nanmin(hv))) - 4, 0)
-            rhi = min(int(np.ceil(np.nanmax(hv))) + 5, data.shape[0])
-            rlo = min(rlo, data.shape[0] - 1)
-            rhi = max(rhi, rlo + 1)
-            valid_slice = None if valid is None else valid[rlo:rhi]
-            res = _resample_block(
-                data[rlo:rhi].astype(np.float64), valid_slice,
-                hu, hv - rlo, resample_algorithm, fill, wraps=wraps,
-                width=ww, all_valid=all_valid)
-            if to_int:
-                res = np.clip(np.rint(res), np.iinfo(out_dtype).min,
-                              np.iinfo(out_dtype).max)
-            out = out.reshape(-1)
-            out[flat] = to_device(res, device, 'warp_ambiguous') \
-                .to(out.dtype)
-            out = out.reshape(out_h, out_w)
+            with STAGE_TIMES.stage('warp.redecide'):
+                flat_np = to_host(flat, 'warp_ambiguous')
+                ii = (flat_np // out_w).astype(np.float64)
+                jj = (flat_np % out_w).astype(np.float64)
+                hsx, hsy = tx(ii, jj)
+                hu, hv = src.pixel_coords(hsx, hsy)
+                hu = hu - c0
+                hv = hv - r0
+                rlo = max(int(np.floor(np.nanmin(hv))) - 4, 0)
+                rhi = min(int(np.ceil(np.nanmax(hv))) + 5, data.shape[0])
+                rlo = min(rlo, data.shape[0] - 1)
+                rhi = max(rhi, rlo + 1)
+                valid_slice = None if valid is None else valid[rlo:rhi]
+                res = _resample_block(
+                    data[rlo:rhi].astype(np.float64), valid_slice,
+                    hu, hv - rlo, resample_algorithm, fill, wraps=wraps,
+                    width=ww, all_valid=all_valid)
+                if to_int:
+                    res = np.clip(np.rint(res), np.iinfo(out_dtype).min,
+                                  np.iinfo(out_dtype).max)
+                out = out.reshape(-1)
+                out[flat] = to_device(res, device, 'warp_ambiguous') \
+                    .to(out.dtype)
+                out = out.reshape(out_h, out_w)
         return out.to(torch_dtype(out_dtype))
     finally:
         src.close()
