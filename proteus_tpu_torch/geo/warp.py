@@ -25,12 +25,15 @@ tracer span, and a row of the campaign's stage table when it is on):
 ``warp.read`` (the source window worked out and read), ``warp.lattice``
 (the coordinate lattice; on the device path also its double-float split
 and its copy to the device), ``warp.source`` (the validity mask, the
-cast and, on the device path, the source's copy) and ``warp.redecide``
-(the float64 re-evaluation of the device's ambiguous pixels). The
-counters ``warp.source_bytes`` (the window as decoded: rows x columns x
-item size) and ``warp.ambiguous_px`` (the pixels re-decided) are always
-on. No stage name starts with ``read_`` or ``write_``: the campaign's
-``read_*`` stages around the warps are summed by that prefix.
+source's cast where one is needed and, on the device path, its copy)
+and ``warp.redecide`` (the float64 re-evaluation of the device's
+ambiguous pixels, from their taps alone). The counters
+``warp.source_bytes`` (the window as decoded: rows x columns x item
+size), ``warp.ambiguous_px`` (the pixels re-decided) and
+``warp.redecide_taps.<algorithm>`` (the taps those pixels read: 1, 4 or
+16 a pixel) are always on. No stage name starts with ``read_`` or
+``write_``: the campaign's ``read_*`` stages around the warps are
+summed by that prefix.
 """
 
 import logging
@@ -62,10 +65,12 @@ def _cubic_weights(t):
     a = -0.5
     def w(x):
         ax = np.abs(x)
+        ax2 = ax ** 2
+        ax3 = ax ** 3  # once for both branches: pow is the costly step
         return np.where(
-            ax <= 1, (a + 2) * ax ** 3 - (a + 3) * ax ** 2 + 1,
+            ax <= 1, (a + 2) * ax3 - (a + 3) * ax2 + 1,
             np.where(ax < 2,
-                     a * ax ** 3 - 5 * a * ax ** 2 + 8 * a * ax - 4 * a,
+                     a * ax3 - 5 * a * ax2 + 8 * a * ax - 4 * a,
                      0.0))
     return [w(t + 1), w(t), w(1 - t), w(2 - t)]
 
@@ -171,10 +176,10 @@ def _resolve_window(src, u, v, radius):
 
 def _read_source(src, window):
     """The pixels of ``window`` (row0, col0, height, width) of ``src``,
-    its first band, counted as ``warp.source_bytes``."""
+    its first band, C-contiguous, counted as ``warp.source_bytes``."""
     data = src.reader.read(window=window)
     if data.ndim == 3:
-        data = data[:, :, 0]
+        data = np.ascontiguousarray(data[:, :, 0])
     COUNTERS.add('warp.source_bytes',
                  data.shape[0] * data.shape[1] * data.itemsize)
     return data
@@ -257,13 +262,15 @@ def warp_to_grid(input_file, geotransform, projection, length, width,
         nodata = src.nodata
         with STAGE_TIMES.stage('warp.source'):
             if nodata is not None and np.isnan(nodata):
-                valid = ~np.isnan(data.astype(np.float64))
+                valid = ~np.isnan(data)
             elif nodata is not None:
                 valid = data != nodata
             else:
                 valid = np.ones(data.shape, dtype=bool)
-            fdata = data.astype(np.float64)
             all_valid = bool(valid.all())
+            # 'average' reads float64 footprints; the kernels read taps
+            fdata = data.astype(np.float64) \
+                if resample_algorithm == 'average' else None
         fill = nodata if nodata is not None else 0
 
         logger.info(f'    relocating file: {input_file}'
@@ -307,7 +314,7 @@ def warp_to_grid(input_file, geotransform, projection, length, width,
                     fdata, None if all_valid else valid, u, v, fill,
                     wraps=block_wraps, width=ww)
             else:
-                block = _resample_block(fdata, valid, u, v,
+                block = _resample_block(data, valid, u, v,
                                         resample_algorithm, fill,
                                         wraps=block_wraps, width=ww,
                                         all_valid=all_valid)
@@ -397,15 +404,29 @@ def _resample_block_average(fdata, valid, uc, vc, fill, wraps, width,
     return np.where((wacc > 0) & ~bad, res, fill)
 
 
-def _resample_block(fdata, valid, u, v, algorithm, fill, wraps, width,
+def _resample_block(data, valid, u, v, algorithm, fill, wraps, width,
                     all_valid=False):
-    h, w = fdata.shape
+    """Resample the window ``data`` at the window-relative source pixel
+    coordinates ``u``, ``v``, in float64.
+
+    ``data`` keeps its own dtype: each pixel's taps are gathered from it
+    and from ``valid``, and only the gathered values are promoted to
+    float64 (exact from integers and float32), so the cost follows the
+    pixels asked for, not the window. Kernel taps are read through the
+    flattened window, a view where ``data`` and ``valid`` are
+    C-contiguous, as ``_read_source`` and the validity masks make them.
+    Past the window's edges rows are edge-clamped and columns
+    edge-clamped, or wrapped modulo the width for a wrapping source; a
+    tap in a row past the window, or in a column past a non-wrapping
+    window, is invalid.
+    """
+    h, w = data.shape
     if algorithm == 'nearest':
         rows = np.floor(v).astype(np.int64)
         cols = np.floor(u).astype(np.int64)
-        vals, ok = _gather(fdata, None if all_valid else valid,
+        vals, ok = _gather(data, None if all_valid else valid,
                            rows, cols, wraps, width)
-        return np.where(ok, vals, fill)
+        return np.where(ok, vals.astype(np.float64), fill)
 
     # kernel-based: fractional position relative to pixel centers
     uc = u - 0.5
@@ -424,69 +445,62 @@ def _resample_block(fdata, valid, u, v, algorithm, fill, wraps, width,
         taps = list(zip((-1, 0, 1, 2), wv))
         cols_w = list(zip((-1, 0, 1, 2), wu))
 
-    # pad the source so kernel taps never need bounds masks: data is
-    # edge-replicated (wrap sources wrap in x); validity is False in the
-    # pad so nodata renormalization handles true out-of-bounds taps.
+    # coordinates far outside the window (possible when the tile extends
+    # past the source) clamp to PAD taps past its edge; such pixels are
+    # outside center_in and masked to fill regardless
     PAD = 2
-    x_mode = 'wrap' if wraps else 'edge'
-    dpad = np.pad(np.pad(fdata, ((PAD, PAD), (0, 0)), mode='edge'),
-                  ((0, 0), (PAD, PAD)), mode=x_mode)
     center_in = (u >= 0) & (u <= w) & (v >= 0) & (v <= h)
     if wraps:
         iu = iu % width
         center_in = (v >= 0) & (v <= h)
-    rbase = np.clip(iv, -PAD, h + PAD - 1) + PAD
-    cbase = np.clip(iu, -PAD, w + PAD - 1) + PAD
+    iv = np.clip(iv, -PAD, h + PAD - 1)
+    iu = np.clip(iu, -PAD, w + PAD - 1)
 
-    def _tap_rows(dr):
-        # coordinates far outside the padded window (possible when the
-        # tile extends past the source) clamp to the pad; such pixels
-        # are outside center_in and masked to fill regardless
-        return np.clip(rbase + dr, 0, h + 2 * PAD - 1)
+    def _axis(base, d, n, wrap):
+        # the taps' indices into the window along one axis, and whether
+        # each lies inside it (None where all do: a wrapping axis)
+        t = base + d
+        if wrap:
+            return t % n, None
+        return np.clip(t, 0, n - 1), (t >= 0) & (t < n)
 
-    def _tap_cols(dc):
-        return np.clip(cbase + dc, 0, w + 2 * PAD - 1)
+    rows = []
+    for dr, wr in taps:
+        rr, rin = _axis(iv, dr, h, False)
+        rows.append((wr, rr * w, rin))  # the row's offset in ``flat``
+    cols = [(wc, *_axis(iu, dc, w, wraps)) for dc, wc in cols_w]
+    flat = data.reshape(-1)
 
     if all_valid and not wraps:
-        # fast path: weights sum to 1 exactly; edge replication stands in
+        # fast path: weights sum to 1 exactly; edge clamping stands in
         # for GDAL's kernel clamping at the source border
         acc = np.zeros(u.shape, dtype=np.float64)
-        for dr, wr in taps:
-            rr = _tap_rows(dr)
-            for dc, wc in cols_w:
-                acc += (wr * wc) * dpad[rr, _tap_cols(dc)]
+        for wr, ro, _ in rows:
+            for wc, cc, _ in cols:
+                acc += (wr * wc) * flat[ro + cc].astype(np.float64)
         return np.where(center_in, acc, fill)
 
-    # validity pads follow the data pads in x: wrapping sources wrap
-    # their validity modulo the width (a seam-crossing tap whose wrapped
-    # column holds valid data IS valid — matching the device gather);
-    # rows and non-wrapping x pad with False so out-of-window taps are
-    # dropped and renormalized
-    if all_valid:
-        vpad = None
-    else:
-        vpad = np.pad(valid, ((PAD, PAD), (0, 0)), mode='constant',
-                      constant_values=False)
-        if wraps:
-            vpad = np.pad(vpad, ((0, 0), (PAD, PAD)), mode='wrap')
-        else:
-            vpad = np.pad(vpad, ((0, 0), (PAD, PAD)), mode='constant',
-                          constant_values=False)
+    # a wrapping source's seam-crossing tap whose wrapped column holds
+    # valid data IS valid (matching the device gather); taps past the
+    # rows, and past the columns of a non-wrapping source, are dropped
+    # and renormalized
+    vflat = None if all_valid else valid.reshape(-1)
     acc = np.zeros(u.shape, dtype=np.float64)
     wacc = np.zeros(u.shape, dtype=np.float64)
-    for dr, wr in taps:
-        rr = _tap_rows(dr)
-        for dc, wc in cols_w:
-            cc = _tap_cols(dc)
+    for wr, ro, rin in rows:
+        for wc, cc, cin in cols:
+            idx = ro + cc
             wgt = wr * wc
-            vals = dpad[rr, cc]
-            if vpad is not None:
-                ok = vpad[rr, cc]
-                acc += np.where(ok, vals * wgt, 0.0)
-                wacc += np.where(ok, wgt, 0.0)
-            else:
+            vals = flat[idx].astype(np.float64)
+            if vflat is None:
                 acc += vals * wgt
                 wacc += wgt
+            else:
+                ok = rin & vflat[idx]
+                if cin is not None:
+                    ok &= cin
+                acc += np.where(ok, vals * wgt, 0.0)
+                wacc += np.where(ok, wgt, 0.0)
     with np.errstate(invalid='ignore', divide='ignore'):
         res = acc / wacc
     return np.where(center_in & (wacc > 1e-9), res, fill)
@@ -824,7 +838,7 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
 
         with STAGE_TIMES.stage('warp.source'):
             if nodata is not None and np.isnan(nodata):
-                valid = ~np.isnan(data.astype(np.float64))
+                valid = ~np.isnan(data)
             elif nodata is not None:
                 valid = data != nodata
             else:
@@ -832,8 +846,7 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
             kernel_input = data if resample_algorithm == 'nearest' else \
                 data.astype(np.float32)
             all_valid = valid is None or bool(valid.all())
-            source = to_device(np.ascontiguousarray(kernel_input), device,
-                               'warp_source')
+            source = to_device(kernel_input, device, 'warp_source')
             source_valid = None if all_valid else \
                 to_device(valid, device, 'warp_source')
 
@@ -859,25 +872,20 @@ def warp_to_grid_device(input_file, geotransform, projection, length,
         flat = torch.nonzero(amb.reshape(-1)).reshape(-1)
         if flat.numel():
             COUNTERS.add('warp.ambiguous_px', flat.numel())
+            COUNTERS.add(f'warp.redecide_taps.{resample_algorithm}',
+                         flat.numel() * max(1, (2 * radius) ** 2))
             # float64 host re-evaluation of the ambiguous pixels,
             # replicating warp_to_grid's chunk pipeline (warp.py:911-942)
+            # on their taps alone
             with STAGE_TIMES.stage('warp.redecide'):
                 flat_np = to_host(flat, 'warp_ambiguous')
                 ii = (flat_np // out_w).astype(np.float64)
                 jj = (flat_np % out_w).astype(np.float64)
                 hsx, hsy = tx(ii, jj)
                 hu, hv = src.pixel_coords(hsx, hsy)
-                hu = hu - c0
-                hv = hv - r0
-                rlo = max(int(np.floor(np.nanmin(hv))) - 4, 0)
-                rhi = min(int(np.ceil(np.nanmax(hv))) + 5, data.shape[0])
-                rlo = min(rlo, data.shape[0] - 1)
-                rhi = max(rhi, rlo + 1)
-                valid_slice = None if valid is None else valid[rlo:rhi]
                 res = _resample_block(
-                    data[rlo:rhi].astype(np.float64), valid_slice,
-                    hu, hv - rlo, resample_algorithm, fill, wraps=wraps,
-                    width=ww, all_valid=all_valid)
+                    data, valid, hu - c0, hv - r0, resample_algorithm, fill,
+                    wraps=wraps, width=ww, all_valid=all_valid)
                 if to_int:
                     res = np.clip(np.rint(res), np.iinfo(out_dtype).min,
                                   np.iinfo(out_dtype).max)
