@@ -179,16 +179,13 @@ def parse_runconfig_file(user_runconfig_file=None, args=None):
 
     # derived per-layer output filenames
     processing = groups['processing']
-    for i, (layer_name, arg_name) in enumerate(
-            C.LAYER_NAMES_TO_ARGS_DICT.items()):
-        layer_number = i + 1
+    for layer_name, arg_name in C.LAYER_NAMES_TO_ARGS_DICT.items():
         save_flag = processing.get(
             'save_' + layer_name.lower().replace('-', '_'))
         cli_value = getattr(args, arg_name, None)
         derived = os.path.join(
             output_directory or '.',
-            f'{product_id}_v{product_version}_B{layer_number:02}'
-            f'_{layer_name}.tif')
+            C.layer_file_name(product_id, product_version, layer_name))
         if cli_value is not None and save_flag:
             logger.warning(
                 f'command line {arg_name} "{cli_value}" has precedence '

@@ -197,6 +197,17 @@ LAYER_NAMES_TO_ARGS_DICT = {
     'INFRARED_RGB': 'output_infrared_rgb_file',
 }
 
+# each layer's band number, B01-B12, in the order above
+LAYER_BAND_NUMBERS = {name: i + 1
+                      for i, name in enumerate(LAYER_NAMES_TO_ARGS_DICT)}
+
+
+def layer_file_name(product_id, product_version, layer_name):
+    """The file name of a product's layer:
+    ``{product_id}_v{version}_B{nn}_{layer}.tif``."""
+    return (f'{product_id}_v{product_version}'
+            f'_B{LAYER_BAND_NUMBERS[layer_name]:02}_{layer_name}.tif')
+
 METADATA_FIELDS_TO_COPY_FROM_HLS_LIST = [
     'MEAN_SUN_AZIMUTH_ANGLE', 'MEAN_SUN_ZENITH_ANGLE',
     'MEAN_VIEW_AZIMUTH_ANGLE', 'MEAN_VIEW_ZENITH_ANGLE',

@@ -38,6 +38,7 @@ import torch
 
 from proteus_tpu_torch.core import constants as C
 from proteus_tpu_torch.device import to_device, to_host
+from proteus_tpu_torch.models.dswx import ancillary
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops.wtr_kernel import BANDS, wtr_layers_batched
 from proteus_tpu_torch.parallel.mesh import (make_tile_mesh,
@@ -312,8 +313,14 @@ class CampaignManifest:
         os.replace(tmp, self.path)
 
 
+# the ancillary cache's capacity in keys
+_ANC_CACHE_KEYS = 4
+
+
 class _AncillaryCache:
-    """Per-grid LRU cache of prepared ancillary products.
+    """Per-grid cache of prepared ancillary products, which evicts in FIFO
+    order (the order keys were first computed, as the reference's; ROADMAP
+    Queue 2 item 1).
 
     A campaign's ancillary inputs (DEM, CGLS, WorldCover, shoreline) are
     static files, and every HLS revisit of an MGRS tile shares the same
@@ -330,7 +337,7 @@ class _AncillaryCache:
     same key (or of its copy on one device) wait for the first
     computation instead of duplicating it. Capacity is keys, not bytes
     (at 3660^2 a grid's DEM with its margin, shadow and LAND are about 85
-    MB a device); PROTEUS_TPU_ANC_CACHE=0 disables.
+    MB a device).
 
     By the key's kind (its first field), ``COUNTERS`` counts each value's
     hits, misses (computations) and waits on another thread's
@@ -339,20 +346,11 @@ class _AncillaryCache:
     the last two.
     """
 
-    def __init__(self, max_entries=None):
-        self._max = max_entries
+    def __init__(self, max_entries=_ANC_CACHE_KEYS):
+        self.max_entries = max_entries
         self._lock = threading.Lock()
         self._entries = {}
         self._order = []
-
-    @property
-    def max_entries(self):
-        if self._max is not None:
-            return self._max
-        try:
-            return int(os.environ.get('PROTEUS_TPU_ANC_CACHE', '4'))
-        except ValueError:
-            return 4
 
     def get(self, key, compute, device=None, move=None):
         """The value of ``key``, from ``compute()`` on its first use. With
@@ -360,10 +358,6 @@ class _AncillaryCache:
         one is copied by ``move(value, device)`` (default: ``.to(device)``
         of each tensor of a tensor or tuple)."""
         kind = key[0] if isinstance(key, tuple) else str(key)
-        if self.max_entries <= 0:
-            COUNTERS.add(f'anc.{kind}.miss')
-            with TRACER.span(f'anc.{kind}.compute'):
-                return compute()
         ent = self._flight(self._entries, key, compute, kind=kind)
         value = ent['value']
         if device is None or _device_of(value) == torch.device(device):
@@ -442,11 +436,10 @@ ANCILLARY_CACHE = _AncillaryCache()
 
 
 # Default tiles per device per batch on CUDA: the value chip_smoke.py's
-# phase 5 runs end to end (1.4-2.0 s a 3660^2 tile on an NVIDIA H100
-# 80GB HBM3 at 700 W, PERF.md). Its phase 5b times the campaign step alone
-# at 0.78-0.86 ms a tile at 2 tiles a device and 0.70-0.77 ms at 4: a gap
-# no end-to-end run can resolve, while 4 doubles the inputs a batch holds
-# on the card and the host. Elsewhere 1.
+# phase 5 runs end to end. The campaign step is under 1% of a tile's time
+# (0.13-0.15 ms a 3660^2 tile on an NVIDIA H100 80GB HBM3, PERF.md), so
+# no end-to-end run tells 2 tiles a device from 4, while 4 doubles the
+# inputs a batch holds on the card and the host. Elsewhere 1.
 CUDA_DEFAULT_TILES_PER_DEVICE = 2
 
 def _fsig(path):
@@ -506,6 +499,8 @@ def _maybe_inject_fault(tile_id):
                 f'injected fault for {tile_id} (attempt {k + 1}/{n})')
 
 
+# the threads of the pool that runs a tile's ancillary preps side by side
+_PREP_THREADS = 8
 _PREP_POOL = None
 _PREP_POOL_LOCK = threading.Lock()
 
@@ -518,32 +513,26 @@ def _prep_pool():
     dominated by file reads and device waits, not Python. Running them
     concurrently cuts a COLD tile's critical path from their sum to
     their max (warm tiles hit _AncillaryCache and never enter the
-    pool's queue long enough to matter). PROTEUS_TPU_PREP_THREADS sizes
-    the pool; 0 disables (serial preps)."""
+    pool's queue long enough to matter)."""
     global _PREP_POOL
-    n = int(os.environ.get('PROTEUS_TPU_PREP_THREADS', '8'))
-    if n <= 0:
-        return None
     with _PREP_POOL_LOCK:
         if _PREP_POOL is None:
             _PREP_POOL = ThreadPoolExecutor(
-                n, thread_name_prefix='anc_prep')
+                _PREP_THREADS, thread_name_prefix='anc_prep')
         return _PREP_POOL
 
 
 def _run_preps(preps):
-    """Run prep closures, concurrently when there are 2+ and a pool.
+    """Run prep closures, concurrently when there are 2+.
 
     Each closure returns a dict of image_dict updates (disjoint keys).
     The first prep runs on the calling reader thread — it stays busy
     instead of sleeping on a future — while the rest overlap in the
-    pool, under the caller's span (``TRACER.carry``). Exceptions
-    propagate exactly as the serial code's did (the first to fail
-    raises; the campaign retry path handles it)."""
-    pool = _prep_pool() if len(preps) > 1 else None
-    if pool is None:
+    pool, under the caller's span (``TRACER.carry``). A prep that fails
+    raises (the first in order); the campaign retry path handles it."""
+    if len(preps) < 2:
         return [fn() for fn in preps]
-    futures = [pool.submit(TRACER.carry(fn)) for fn in preps[1:]]
+    futures = [_prep_pool().submit(TRACER.carry(fn)) for fn in preps[1:]]
     results = [preps[0]()]
     results += [f.result() for f in futures]
     return results
@@ -562,7 +551,7 @@ def _tile_span(name):
 
 
 @_tile_span('campaign.read')
-def _read_tile(job, flag_debug=False, config=None, scaled=False,
+def _read_tile(job, config, flag_debug=False, scaled=False,
                device_scale=False, device=None):
     """Decode one tile's bands + prepare its ancillary masks on ``device``
     (runs in the reader pool, overlapping the device step of the previous
@@ -570,9 +559,10 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
 
     The ancillary groups run concurrently via _run_preps, so a cold grid
     pays max(ocean, dem+shadow, landcover) instead of their sum. The ocean
-    mask is the host rasterization dilated on the device, the DEM and
-    landcover are device warps, the shadow the exact
-    'sun_local_inc_angle' layer; each lives on ``device``.
+    mask is the host rasterization dilated on the device; the DEM, the
+    shadow by ``config``'s algorithm and LAND are
+    ``models/dswx/ancillary.py``'s, each cached per grid and living on
+    ``device``.
 
     ``scaled=True`` applies the per-band scale/offset at ingest
     (float32 reflectance, reference dswx_hls.py:2298-2302).
@@ -626,63 +616,37 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
 
     if job.dem_file:
         def _prep_dem_shadow():
-            from proteus_tpu_torch.geo.warp import warp_to_grid_device
-            from proteus_tpu_torch.models.dswx.shadow import (
-                compute_opera_shadow_layer_exact,
-                compute_otsu_shadow_layer_exact)
-            from proteus_tpu_torch.runtime.orchestrator import _mean_angle
             with STAGE_TIMES.stage('read_dem_shadow'):
-                az = _mean_angle(
+                az = ancillary.mean_sun_angle(
                     metadata.get('MEAN_SUN_AZIMUTH_ANGLE', '0'))
-                zen = _mean_angle(
+                zen = ancillary.mean_sun_angle(
                     metadata.get('MEAN_SUN_ZENITH_ANGLE', '0'))
-                min_slope = (config.min_slope_angle
-                             if config is not None else -5.0)
-                max_inc = (config.max_sun_local_inc_angle
-                           if config is not None else 40.0)
-                shadow_alg = (config.shadow_masking_algorithm
-                              if config is not None and
-                              config.shadow_masking_algorithm else
-                              'sun_local_inc_angle')
                 m = C.DEM_MARGIN_IN_PIXELS
                 dkey = ('dem_warp', _fsig(job.dem_file), gt, proj,
                         length, width, m)
 
                 def _crop(dem_m):
-                    return dem_m, dem_m[m:-m, m:-m]
-
-                def _warp_dem():
-                    return _crop(warp_to_grid_device(
-                        job.dem_file, gt, proj, length, width,
-                        resample_algorithm='cubic', margin_in_pixels=m,
-                        device=device))
+                    return dem_m, ancillary.crop_margin(dem_m, m)
 
                 # the DEM warp is per grid (cached); the shadow depends on
                 # the granule's sun angles, so its key includes them. Both
                 # stay on the device; the writer pool copies them out
                 dem_m, dem_crop = ANCILLARY_CACHE.get(
-                    dkey, _warp_dem, device,
-                    move=lambda v, dev: _crop(
+                    dkey, lambda: _crop(ancillary.warp_dem(
+                        job.dem_file, gt, proj, length, width, device)),
+                    device, move=lambda v, dev: _crop(
                         to_device(v[0], dev, 'anc_copy')))
 
                 def _shadow():
-                    if shadow_alg == 'otsu':
-                        # reference dswx_hls.py:4430-4436: hillshade over
-                        # the margined DEM + global-histogram Otsu cut
-                        shad = compute_otsu_shadow_layer_exact(
-                            dem_m, az, 90.0 - zen, pixel_spacing_x=gt[1],
-                            pixel_spacing_y=gt[5])
-                    else:
-                        shad = compute_opera_shadow_layer_exact(
-                            dem_m, az, 90.0 - zen, min_slope, max_inc)
-                    shad_crop = shad[m:-m, m:-m].to(torch.uint8) \
-                        .contiguous()
+                    shad_crop = ancillary.terrain_shadow(dem_m, gt, az, zen,
+                                                         config)
                     # the writer only needs the binary SHAD values: copy
                     # out 1 bit/px
                     return shad_crop, pack_bits_device(shad_crop)
 
-                skey = ('shadow', dkey, az, zen, min_slope, max_inc,
-                        shadow_alg)
+                skey = ('shadow', dkey, az, zen, config.min_slope_angle,
+                        config.max_sun_local_inc_angle,
+                        config.shadow_masking_algorithm)
                 shad_crop, shad_packed = ANCILLARY_CACHE.get(
                     skey, _shadow, device)
                 # dkey identifies the warped-DEM payload exactly (file
@@ -696,35 +660,15 @@ def _read_tile(job, flag_debug=False, config=None, scaled=False,
 
     if job.landcover_file and job.worldcover_file:
         def _prep_landcover():
-            from proteus_tpu_torch.geo.warp import (warp_to_grid_device,
-                                                    worldcover_year_of)
-            from proteus_tpu_torch.models.dswx.landcover import \
-                create_landcover_mask_arrays
             with STAGE_TIMES.stage('read_landcover'):
-                forest = tuple(config.forest_mask_landcover_classes
-                               if config is not None else
-                               (20, 50, 111, 113, 115, 116, 121, 123,
-                                125, 126))
-
-                def _landcover():
-                    cgls = warp_to_grid_device(
-                        job.landcover_file, gt, proj, length, width,
-                        resample_algorithm='nearest', device=device)
-                    gt3 = (gt[0], gt[1] / 3, 0.0, gt[3], 0.0, gt[5] / 3)
-                    wc3 = warp_to_grid_device(
-                        job.worldcover_file, gt3, proj, 3 * length,
-                        3 * width, resample_algorithm='nearest',
-                        device=device)
-                    year = worldcover_year_of(job.worldcover_file)
-                    return create_landcover_mask_arrays(
-                        cgls, wc3, C.LANDCOVER_MASK_TYPE, forest,
-                        worldcover_year=year).to(torch.uint8).contiguous()
-
+                forest = tuple(config.forest_mask_landcover_classes)
                 lkey = ('landcover', _fsig(job.landcover_file),
                         _fsig(job.worldcover_file), gt, proj, length,
                         width, C.LANDCOVER_MASK_TYPE, forest)
                 return {'landcover_mask': ANCILLARY_CACHE.get(
-                    lkey, _landcover, device)}
+                    lkey, lambda: ancillary.landcover_mask(
+                        job.landcover_file, job.worldcover_file, gt, proj,
+                        length, width, forest, device), device)}
         preps.append(_prep_landcover)
 
     for updates in _run_preps(preps):
@@ -749,8 +693,9 @@ def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
     on their shards' devices — copied out here, in the writer pool, so the
     device->host transfer overlaps the next batch's compute. In
     minimal-transfer mode (a 'PACKED_A' key), the dependent layers are
-    derived here too (models/dswx/host_derive.py). The write is the
-    tracer's span ``campaign.write``."""
+    derived here too (models/dswx/host_derive.py). Each layer's file is
+    ``C.layer_file_name``'s, written by ``product_writer.save_layer``. The
+    write is the tracer's span ``campaign.write``."""
     from proteus_tpu_torch.io.png import geotiff2png
     from proteus_tpu_torch.runtime import ctables
     from proteus_tpu_torch.runtime import product_writer as pw
@@ -766,59 +711,21 @@ def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
     os.makedirs(job.output_dir, exist_ok=True)
     saved = []
 
-    def path_for(nn, layer):
-        return os.path.join(
-            job.output_dir,
-            f'{job.product_id}_v{job.product_version}_B{nn:02}'
-            f'_{layer}.tif')
-
-    order = [('WTR', 1), ('BWTR', 2), ('CONF', 3), ('DIAG', 4),
-             ('WTR-1', 5), ('WTR-2', 6), ('CLOUD', 9)]
-    with STAGE_TIMES.stage('write_cog_science'):
-        for layer, nn in order:
-            path = path_for(nn, layer)
-            if layer in ('WTR', 'WTR-1', 'WTR-2'):
-                pw.save_dswx_product(layers[layer], layer, path,
-                                     metadata, geotransform, projection)
-            elif layer == 'CLOUD':
-                pw.save_cloud_layer(layers[layer], path, metadata,
-                                    geotransform, projection,
-                                    description=C.BAND_DESCRIPTION_DICT[
-                                        'CLOUD'])
-            elif layer == 'BWTR':
-                pw.save_binary_water(layers[layer], path, metadata,
-                                     geotransform, projection,
-                                     description=C.BAND_DESCRIPTION_DICT[
-                                         'BWTR'])
-            elif layer == 'CONF':
-                pw.save_array(layers[layer], path, metadata,
-                              geotransform, projection,
-                              description=C.BAND_DESCRIPTION_DICT[
-                                  'CONF'],
-                              ctable=
-                              ctables.get_confidence_layer_ctable(),
-                              no_data_value=C.UINT8_FILL_VALUE)
-            else:
-                pw.save_array(layers[layer], path, metadata,
-                              geotransform, projection,
-                              description=C.BAND_DESCRIPTION_DICT[
-                                  'DIAG'],
-                              no_data_value=
-                              C.DIAGNOSTIC_LAYER_NO_DATA_BINARY_REPR)
-            saved.append(path)
-
-    if 'landcover_mask' in image_dict:
-        path = path_for(7, 'LAND')
-        with STAGE_TIMES.stage('write_cog_land'):
-            pw.save_array(_host(image_dict['landcover_mask']), path,
-                          metadata,
-                          geotransform, projection,
-                          description=C.BAND_DESCRIPTION_DICT['LAND'],
-                          ctable=ctables.get_landcover_mask_ctable(),
-                          no_data_value=C.UINT8_FILL_VALUE)
+    def save(layer, array, **kwargs):
+        path = os.path.join(job.output_dir, C.layer_file_name(
+            job.product_id, job.product_version, layer))
+        pw.save_layer(layer, array, path, metadata, geotransform,
+                      projection, **kwargs)
         saved.append(path)
+
+    with STAGE_TIMES.stage('write_cog_science'):
+        for layer in ('WTR', 'BWTR', 'CONF', 'DIAG', 'WTR-1', 'WTR-2',
+                      'CLOUD'):
+            save(layer, layers[layer])
+    if 'landcover_mask' in image_dict:
+        with STAGE_TIMES.stage('write_cog_land'):
+            save('LAND', _host(image_dict['landcover_mask']))
     if 'shadow_layer' in image_dict:
-        path = path_for(8, 'SHAD')
         with STAGE_TIMES.stage('write_cog_shad'):
             if 'shadow_packed' in image_dict:
                 from proteus_tpu_torch.models.dswx import host_derive
@@ -826,28 +733,21 @@ def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
                     _host(image_dict['shadow_packed']), image_dict['width'])
             else:
                 shad = _host(image_dict['shadow_layer'])
-            pw.save_array(shad, path, metadata,
-                          geotransform, projection,
-                          description=C.BAND_DESCRIPTION_DICT['SHAD'],
-                          ctable=ctables.get_binary_mask_ctable())
-        saved.append(path)
+            save('SHAD', shad)
     if 'dem' in image_dict:
-        path = path_for(10, 'DEM')
         with STAGE_TIMES.stage('write_d2h_dem'):
             dem_host = _host(image_dict['dem'])
         with STAGE_TIMES.stage('write_cog_dem_float32'):
-            pw.save_array(dem_host, path, metadata,
-                          geotransform, projection,
-                          description=C.BAND_DESCRIPTION_DICT['DEM'],
-                          no_data_value=float('nan'),
-                          payload_key=image_dict.get('dem_payload_key'))
-        saved.append(path)
+            save('DEM', dem_host,
+                 payload_key=image_dict.get('dem_payload_key'))
 
     if 'BROWSE' in layers:
         browse_tif = os.path.join(
             job.output_dir,
             f'{job.product_id}_v{job.product_version}_BROWSE.tif')
         browse_png = browse_tif.replace('.tif', '.png')
+        # the default colours, not the config's, as the reference
+        # campaign's browse (ROADMAP, known faults in the reference)
         ct = ctables.get_browse_ctable()
         with STAGE_TIMES.stage('write_browse'):
             pw.save_array(layers['BROWSE'], browse_tif, metadata,
@@ -871,8 +771,7 @@ class CampaignRunner:
     def __init__(self, config: DswxChainConfig = None, mesh=None,
                  manifest_path=None, max_retries=2, reader_threads=None,
                  writer_threads=None, flag_debug=False,
-                 save_browse=False, processing_params=None,
-                 spatial_shards=1, tiles_per_device=None,
+                 save_browse=False, spatial_shards=1, tiles_per_device=None,
                  scaled_inputs=False, device_scale=None):
         # pool sizing: enough threads to overlap device/link waits with
         # host work, but not so many that they thrash a small host
@@ -917,7 +816,6 @@ class CampaignRunner:
         self.max_retries = max_retries
         self.flag_debug = flag_debug
         self.save_browse = save_browse
-        self.processing_params = processing_params or {}
         self._steps = {}  # keyed by (ocean, shadow, landcover) presence
         self._readers = ThreadPoolExecutor(reader_threads)
         self._writers = ThreadPoolExecutor(writer_threads)
@@ -1017,7 +915,7 @@ class CampaignRunner:
             with TRACER.span('campaign.submit_reads'):
                 return [(j, self._readers.submit(
                              TRACER.carry(_read_tile, item=j.tile_id), j,
-                             self.flag_debug, self.config,
+                             self.config, self.flag_debug,
                              self.scaled_inputs, self.device_scale,
                              self._reader_device(i)))
                         for i, j in enumerate(batch)]

@@ -45,15 +45,11 @@ from proteus_tpu_torch.core.thresholds import HlsThresholds
 from proteus_tpu_torch.device import synchronize, to_device, to_host
 from proteus_tpu_torch.geo.coverage import check_ancillary_inputs
 from proteus_tpu_torch.geo.polygon import create_ocean_mask
-from proteus_tpu_torch.geo.warp import warp_to_grid_device, worldcover_year_of
 from proteus_tpu_torch.io import hls as hls_io
 from proteus_tpu_torch.io.png import geotiff2png
 from proteus_tpu_torch.io.vrt import build_vrt
+from proteus_tpu_torch.models.dswx import ancillary
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
-from proteus_tpu_torch.models.dswx.landcover import \
-    create_landcover_mask_arrays
-from proteus_tpu_torch.models.dswx.shadow import (
-    compute_opera_shadow_layer_exact, compute_otsu_shadow_layer_exact)
 from proteus_tpu_torch.ops.wtr_kernel import (COUNTS, kernel_slices,
                                               wtr_layers)
 from proteus_tpu_torch.runtime import ctables
@@ -64,17 +60,6 @@ from proteus_tpu_torch.runtime.profiling import (COUNTERS, TRACER,
 from proteus_tpu_torch.version import VERSION as SOFTWARE_VERSION
 
 logger = logging.getLogger('dswx_hls')
-
-
-def _mean_angle(meta_value):
-    parts = str(meta_value).split(', ')
-    if len(parts) == 2:
-        return (float(parts[0]) + float(parts[1])) / 2.0
-    return float(parts[0])
-
-
-def _crop_margin(arr, margin):
-    return arr[margin:-margin, margin:-margin]
 
 
 # the save pool's threads: a product's layer files are written side by
@@ -389,9 +374,9 @@ def generate_dswx_layers(input_list,
     invalid_array = hls_arrays['invalid_ind_array']
     del hls_arrays
 
-    sun_azimuth_angle = _mean_angle(
+    sun_azimuth_angle = ancillary.mean_sun_angle(
         dswx_metadata_dict['MEAN_SUN_AZIMUTH_ANGLE'])
-    sun_zenith_angle = _mean_angle(
+    sun_zenith_angle = ancillary.mean_sun_angle(
         dswx_metadata_dict['MEAN_SUN_ZENITH_ANGLE'])
     sun_elevation_angle = 90 - float(sun_zenith_angle)
     logger.info('Sun parameters (from HLS metadata):')
@@ -424,6 +409,31 @@ def generate_dswx_layers(input_list,
                 geotransform, projection, length, width, device=device)
             synchronize(device)
 
+    # the settings of the ancillary layers and of the per-pixel chain
+    chain_config = DswxChainConfig(
+        thresholds=hls_thresholds,
+        mask_adjacent_to_cloud_mode=p['mask_adjacent_to_cloud_mode'],
+        apply_aerosol_class_remapping=p['apply_aerosol_class_remapping'],
+        aerosol_not_water_fmask_values=tuple(
+            p['aerosol_not_water_to_high_conf_water_fmask_values']),
+        aerosol_moderate_conf_fmask_values=tuple(
+            p['aerosol_water_moderate_conf_to_high_conf_water_fmask_values']),
+        aerosol_psw_conservative_fmask_values=tuple(
+            p['aerosol_partial_surface_water_conservative_to_high_conf_water_fmask_values']),
+        aerosol_psw_aggressive_fmask_values=tuple(
+            p['aerosol_partial_surface_aggressive_to_high_conf_water_fmask_values']),
+        min_slope_angle=p['min_slope_angle'],
+        max_sun_local_inc_angle=p['max_sun_local_inc_angle'],
+        shadow_masking_algorithm=p['shadow_masking_algorithm'],
+        forest_mask_landcover_classes=tuple(
+            p['forest_mask_landcover_classes'] or ()),
+        exclude_psw_aggressive_in_browse=bool(
+            p['exclude_psw_aggressive_in_browse']),
+        not_water_in_browse=p['not_water_in_browse'],
+        cloud_in_browse=p['cloud_in_browse'],
+        snow_in_browse=p['snow_in_browse'],
+    )
+
     # ---- the product's layer saves run on its own pool -------------------
     with _LayerSaves() as saves:
         payloads = {}
@@ -432,33 +442,21 @@ def generate_dswx_layers(input_list,
         if dem_file is not None:
             logger.info(f'Preparing DEM file: {dem_file}')
             with timers.stage('DEM warp'):
-                dem_with_margin = warp_to_grid_device(
+                dem_with_margin = ancillary.warp_dem(
                     dem_file, geotransform, projection, length, width,
-                    resample_algorithm='cubic',
-                    margin_in_pixels=C.DEM_MARGIN_IN_PIXELS, device=device)
+                    device)
                 synchronize(device)
             # cropped on the host: a crop's copy would be made contiguous
             # on the device first
-            dem = _crop_margin(to_host(dem_with_margin, 'chain'),
-                               C.DEM_MARGIN_IN_PIXELS)
+            dem = ancillary.crop_margin(to_host(dem_with_margin, 'chain'),
+                                        C.DEM_MARGIN_IN_PIXELS)
             if output_dem_layer is not None:
                 payloads['DEM'] = saves.early('DEM', dem)
             with timers.stage('terrain shadow'):
-                if p['shadow_masking_algorithm'] == 'otsu':
-                    shadow_with_margin = compute_otsu_shadow_layer_exact(
-                        dem_with_margin, sun_azimuth_angle,
-                        sun_elevation_angle,
-                        pixel_spacing_x=geotransform[1],
-                        pixel_spacing_y=geotransform[5])
-                else:
-                    shadow_with_margin = compute_opera_shadow_layer_exact(
-                        dem_with_margin, sun_azimuth_angle,
-                        sun_elevation_angle, p['min_slope_angle'],
-                        p['max_sun_local_inc_angle'])
+                shadow_layer = ancillary.terrain_shadow(
+                    dem_with_margin, geotransform, sun_azimuth_angle,
+                    sun_zenith_angle, chain_config)
                 synchronize(device)
-            shadow_layer = _crop_margin(shadow_with_margin,
-                                        C.DEM_MARGIN_IN_PIXELS) \
-                .to(torch.uint8).contiguous()
             shadow_host = to_host(shadow_layer, 'chain')
             if output_shadow_layer:
                 payloads['SHAD'] = saves.early('SHAD', shadow_host)
@@ -474,22 +472,11 @@ def generate_dswx_layers(input_list,
                 elif not os.path.isfile(worldcover_file):
                     logger.error(f'ERROR file not found: {worldcover_file}')
                 else:
-                    cgls = warp_to_grid_device(
-                        landcover_file, geotransform, projection, length,
-                        width, resample_algorithm='nearest', device=device)
-                    gt3 = (geotransform[0], geotransform[1] / 3, 0.0,
-                           geotransform[3], 0.0, geotransform[5] / 3)
-                    wc3 = warp_to_grid_device(
-                        worldcover_file, gt3, projection, 3 * length,
-                        3 * width, resample_algorithm='nearest',
-                        device=device)
-                    year = worldcover_year_of(worldcover_file,
-                                              worldcover_file_description)
-                    landcover_mask = create_landcover_mask_arrays(
-                        cgls, wc3, C.LANDCOVER_MASK_TYPE,
-                        p['forest_mask_landcover_classes'],
-                        worldcover_year=year).contiguous()
-                    del cgls, wc3
+                    landcover_mask = ancillary.landcover_mask(
+                        landcover_file, worldcover_file, geotransform,
+                        projection, length, width,
+                        chain_config.forest_mask_landcover_classes, device,
+                        worldcover_description=worldcover_file_description)
                     synchronize(device)
         if landcover_mask is not None:
             landcover_host = to_host(landcover_mask, 'chain')
@@ -497,25 +484,6 @@ def generate_dswx_layers(input_list,
                 payloads['LAND'] = saves.early('LAND', landcover_host)
 
         # ---- the per-pixel chain (device) -----------------------------------
-        chain_config = DswxChainConfig(
-            thresholds=hls_thresholds,
-            mask_adjacent_to_cloud_mode=p['mask_adjacent_to_cloud_mode'],
-            apply_aerosol_class_remapping=p['apply_aerosol_class_remapping'],
-            aerosol_not_water_fmask_values=tuple(
-                p['aerosol_not_water_to_high_conf_water_fmask_values']),
-            aerosol_moderate_conf_fmask_values=tuple(
-                p['aerosol_water_moderate_conf_to_high_conf_water_fmask_values']),
-            aerosol_psw_conservative_fmask_values=tuple(
-                p['aerosol_partial_surface_water_conservative_to_high_conf_water_fmask_values']),
-            aerosol_psw_aggressive_fmask_values=tuple(
-                p['aerosol_partial_surface_aggressive_to_high_conf_water_fmask_values']),
-            exclude_psw_aggressive_in_browse=bool(
-                p['exclude_psw_aggressive_in_browse']),
-            not_water_in_browse=p['not_water_in_browse'],
-            cloud_in_browse=p['cloud_in_browse'],
-            snow_in_browse=p['snow_in_browse'],
-        )
-
         # int16 bands, or float32 ones with flag_offset_and_scale_inputs
         where = device.type
         if device.type == 'cuda':
@@ -568,29 +536,19 @@ def generate_dswx_layers(input_list,
             return dict(dswx_metadata_dict)
 
         with timers.stage('layer saves (COG encode)'):
-            if dem is not None and output_dem_layer is not None:
-                saves.file('DEM', pw.save_array, dem, output_dem_layer, md(),
+            def save(layer, array, output, **kwargs):
+                saves.file(layer, pw.save_layer, layer, array, output, md(),
                            geotransform, projection,
-                           description=C.BAND_DESCRIPTION_DICT['DEM'],
-                           output_files_list=vrt_member_files,
-                           no_data_value=np.nan, payload=payloads['DEM'])
+                           output_files_list=vrt_member_files, **kwargs)
+
+            if dem is not None and output_dem_layer is not None:
+                save('DEM', dem, output_dem_layer, payload=payloads['DEM'])
             if shadow_host is not None and output_shadow_layer:
-                saves.file('SHAD', pw.save_array, shadow_host,
-                           output_shadow_layer, md(), geotransform,
-                           projection,
-                           description=C.BAND_DESCRIPTION_DICT['SHAD'],
-                           output_files_list=vrt_member_files,
-                           ctable=ctables.get_binary_mask_ctable(),
-                           payload=payloads['SHAD'])
+                save('SHAD', shadow_host, output_shadow_layer,
+                     payload=payloads['SHAD'])
             if landcover_host is not None and output_landcover:
-                saves.file('LAND', pw.save_array, landcover_host,
-                           output_landcover, md(), geotransform, projection,
-                           description=C.BAND_DESCRIPTION_DICT['LAND'],
-                           output_files_list=vrt_member_files,
-                           ctable=ctables.get_landcover_mask_ctable(),
-                           no_data_value=C.DSWX_HLS_LANDCOVER_CLASSES_DICT[
-                               'fill_value'],
-                           payload=payloads['LAND'])
+                save('LAND', landcover_host, output_landcover,
+                     payload=payloads['LAND'])
 
             invalid_ind = np.where(invalid_array)
             if output_rgb_file:
@@ -611,27 +569,13 @@ def generate_dswx_layers(input_list,
                            flag_infrared=True)
 
             if output_diagnostic_layer:
-                saves.file('DIAG', pw.save_array, out['DIAG'],
-                           output_diagnostic_layer, md(), geotransform,
-                           projection,
-                           description=C.BAND_DESCRIPTION_DICT['DIAG'],
-                           output_files_list=vrt_member_files,
-                           no_data_value=
-                           C.DIAGNOSTIC_LAYER_NO_DATA_BINARY_REPR)
+                save('DIAG', out['DIAG'], output_diagnostic_layer)
             if output_non_masked_dswx:
-                saves.file('WTR-1', pw.save_dswx_product, out['WTR-1'],
-                           'WTR-1', output_non_masked_dswx, md(),
-                           geotransform, projection,
-                           output_files_list=vrt_member_files)
+                save('WTR-1', out['WTR-1'], output_non_masked_dswx)
             if output_shadow_masked_dswx is not None:
-                saves.file('WTR-2', pw.save_dswx_product, out['WTR-2'],
-                           'WTR-2', output_shadow_masked_dswx, md(),
-                           geotransform, projection,
-                           output_files_list=vrt_member_files)
+                save('WTR-2', out['WTR-2'], output_shadow_masked_dswx)
             if output_interpreted_band:
-                saves.file('WTR', pw.save_dswx_product, out['WTR'], 'WTR',
-                           output_interpreted_band, md(), geotransform,
-                           projection, output_files_list=vrt_member_files)
+                save('WTR', out['WTR'], output_interpreted_band)
 
             if output_browse_image:
                 browse_ctable = ctables.get_browse_ctable(
@@ -657,25 +601,11 @@ def generate_dswx_layers(input_list,
                            output_files_list=standalone_output_files)
 
             if output_cloud_layer:
-                saves.file('CLOUD', pw.save_cloud_layer, out['CLOUD'],
-                           output_cloud_layer, md(), geotransform,
-                           projection,
-                           description=C.BAND_DESCRIPTION_DICT['CLOUD'],
-                           output_files_list=vrt_member_files)
+                save('CLOUD', out['CLOUD'], output_cloud_layer)
             if output_binary_water:
-                saves.file('BWTR', pw.save_binary_water, out['BWTR'],
-                           output_binary_water, md(), geotransform,
-                           projection,
-                           description=C.BAND_DESCRIPTION_DICT['BWTR'],
-                           output_files_list=vrt_member_files)
+                save('BWTR', out['BWTR'], output_binary_water)
             if output_confidence_layer:
-                saves.file('CONF', pw.save_array, out['CONF'],
-                           output_confidence_layer, md(), geotransform,
-                           projection,
-                           description=C.BAND_DESCRIPTION_DICT['CONF'],
-                           output_files_list=vrt_member_files,
-                           ctable=ctables.get_confidence_layer_ctable(),
-                           no_data_value=C.UINT8_FILL_VALUE)
+                save('CONF', out['CONF'], output_confidence_layer)
 
             if output_file and not output_file.endswith('.vrt'):
                 saves.file('product', pw.save_dswx_product,

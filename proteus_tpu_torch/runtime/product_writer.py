@@ -178,6 +178,50 @@ def save_binary_water(binary_water_layer, output_file, dswx_metadata_dict,
                no_data_value=C.UINT8_FILL_VALUE)
 
 
+# the layers ``save_array`` writes: each one's colour table (a ``ctables``
+# getter) and no-data value
+_SAVE_ARRAY_LAYERS = {
+    'CONF': (ctables.get_confidence_layer_ctable, C.UINT8_FILL_VALUE),
+    'DIAG': (None, C.DIAGNOSTIC_LAYER_NO_DATA_BINARY_REPR),
+    'LAND': (ctables.get_landcover_mask_ctable,
+             C.DSWX_HLS_LANDCOVER_CLASSES_DICT['fill_value']),
+    'SHAD': (ctables.get_binary_mask_ctable, None),
+    'DEM': (None, np.nan),
+}
+
+
+def save_layer(layer, array, output_file, dswx_metadata_dict, geotransform,
+               projection, **kwargs):
+    """Save the product layer ``layer`` (a name of
+    ``C.BAND_DESCRIPTION_DICT``) as its own COG: WTR, WTR-1 and WTR-2 by
+    ``save_dswx_product``, CLOUD by ``save_cloud_layer``, BWTR by
+    ``save_binary_water``, the others by ``save_array`` with their colour
+    table and no-data value. The save is looked up in this module when it
+    is called; ``kwargs`` (``payload=``, ``payload_key=``,
+    ``output_files_list=``) pass through."""
+    if layer in ('WTR', 'WTR-1', 'WTR-2'):
+        save_dswx_product(array, layer, output_file, dswx_metadata_dict,
+                          geotransform, projection, **kwargs)
+        return
+    if layer not in C.BAND_DESCRIPTION_DICT:
+        raise ValueError(f'unknown product layer: {layer!r}')
+    description = C.BAND_DESCRIPTION_DICT[layer]
+    if layer == 'CLOUD':
+        save_cloud_layer(array, output_file, dswx_metadata_dict,
+                         geotransform, projection, description=description,
+                         **kwargs)
+    elif layer == 'BWTR':
+        save_binary_water(array, output_file, dswx_metadata_dict,
+                          geotransform, projection, description=description,
+                          **kwargs)
+    else:
+        ctable, no_data_value = _SAVE_ARRAY_LAYERS[layer]
+        save_array(array, output_file, dswx_metadata_dict, geotransform,
+                   projection, description=description,
+                   ctable=ctable() if ctable else None,
+                   no_data_value=no_data_value, **kwargs)
+
+
 def save_output_rgb_file(red, green, blue, output_file, offset_dict,
                          scale_dict, flag_offset_and_scale_inputs,
                          dswx_metadata_dict, geotransform, projection,

@@ -19,9 +19,9 @@ settings. The report names the COG codec in use (``native.codec()``: the
 host stages are mostly its encodes). One JSON line a run: tiles/min and
 tiles/hour, the per-stage core-seconds, the ancillary cache's misses by
 kind (cold N each, warm 1) and the device's peak memory
-(``torch.cuda.max_memory_allocated()``; a cold run computes up to
-``PROTEUS_TPU_PREP_THREADS`` grids' warps at once, and only the cache's
-capacity in keys bounds what stays resident). Then a
+(``torch.cuda.max_memory_allocated()``; a cold run computes the warps of
+as many grids at once as its readers and their prep pool allow, and only
+the cache's capacity in keys bounds what stays resident). Then a
 line with ``cold_over_warm_ratio``, the warm run's tiles/min over the
 cold's. The inputs are written before each run's clock starts.
 
