@@ -355,19 +355,26 @@ class _IfdPlan:
 
 class _PayloadCache:
     """Small LRU of built COG tile payloads (compressed blobs + pyramid
-    shapes), keyed by a caller-supplied identity key plus every
-    payload-affecting encode parameter.
+    shapes), keyed by ``payload_cache_key``: a caller-supplied identity
+    key plus the shape, dtype and DEFLATE level.
 
-    A campaign writes an IDENTICAL pixel payload for the DEM layer of
-    every revisit of a product grid — the warped DEM is a pure function
-    of (DEM file signature, grid), the same key
+    A campaign writes an IDENTICAL pixel payload for the DEM and LAND
+    layers of every revisit of a product grid — the warped DEM and LAND
+    are pure functions of (ancillary file signatures, grid), the keys
     parallel/campaign._AncillaryCache uses — while only the per-product
     metadata tags differ between files. Decimation + DEFLATE of the
     float32 DEM is the largest single host encode stage
     (~0.97 core-s/tile at 3660^2, HOST_BUDGET.json); reusing the blobs
     makes it a once-per-grid cost. Entries hold compressed bytes only
     (~10-30 MB per grid). PROTEUS_TPU_COG_PAYLOAD_CACHE caps entries
-    (0 disables; default 4, matching the ancillary cache)."""
+    (0 keeps none; default 4, matching the ancillary cache).
+
+    Single flight: ``claim`` hands a key's first writer the build (a
+    miss); writers that come while it builds wait for it, later ones
+    take it (hits). ``COUNTERS`` counts ``cog_payload.miss``, ``.wait``
+    and ``.hit``. A build that fails raises in its waiters and leaves
+    no entry. With no room every claim builds, and nothing is kept or
+    shared."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -382,29 +389,39 @@ class _PayloadCache:
         except ValueError:
             return 4
 
-    def get(self, key):
-        with self._lock:
-            plans = self._entries.get(key)
-            COUNTERS.add('cog_payload.miss' if plans is None
-                         else 'cog_payload.hit')
-            if plans is None:
-                return None
-            self._order.remove(key)
-            self._order.append(key)
-            # tile_offsets is assigned per write; hand out shallow
-            # copies so concurrent writer-pool calls never share it
-            return [copy.copy(p) for p in plans]
-
-    def put(self, key, plans):
+    def claim(self, key):
+        """A writer's ``_Claim`` of ``key``'s payload, to be used as a
+        context manager; a hit or a wait moves the key to the back of
+        the eviction order."""
         cap = self.max_entries()
-        if cap <= 0:
-            return
         with self._lock:
-            if key not in self._entries:
+            flight = self._entries.get(key)
+            builds = flight is None
+            if builds:
+                flight = {'done': threading.Event(), 'plans': None,
+                          'error': None}
+                if cap > 0:
+                    self._entries[key] = flight
+                    self._order.append(key)
+                    while len(self._order) > cap:
+                        self._entries.pop(self._order.pop(0))
+            else:
+                self._order.remove(key)
                 self._order.append(key)
-            self._entries[key] = plans
-            while len(self._order) > cap:
-                self._entries.pop(self._order.pop(0), None)
+            COUNTERS.add('cog_payload.miss' if builds else
+                         'cog_payload.hit' if flight['done'].is_set()
+                         else 'cog_payload.wait')
+        return _Claim(self, key, flight, builds)
+
+    def _fail(self, key, flight, error):
+        """End ``flight`` with ``error``: its entry goes and its waiters
+        raise it."""
+        with self._lock:
+            if self._entries.get(key) is flight:
+                del self._entries[key]
+                self._order.remove(key)
+        flight['error'] = error
+        flight['done'].set()
 
     def clear(self):
         with self._lock:
@@ -412,7 +429,57 @@ class _PayloadCache:
             self._order.clear()
 
 
+class _Claim:
+    """One writer's hold on a payload of ``_PayloadCache``. ``builds`` is
+    True for the writer that makes it: only that writer needs the pixels
+    (``plans(make)`` runs ``make()``); any other's ``plans`` waits for
+    the builder. Leaving the ``with`` block before the builder's
+    ``plans`` has returned, by an exception or otherwise, fails the build
+    for its waiters."""
+
+    def __init__(self, cache, key, flight, builds):
+        self._cache = cache
+        self._key = key
+        self._flight = flight
+        self.builds = builds
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, error, tb):
+        if self.builds and not self._flight['done'].is_set():
+            self._cache._fail(self._key, self._flight, error or RuntimeError(
+                'the writer that claimed the payload did not build it'))
+
+    def plans(self, make):
+        """The payload, as shallow copies of its plans (a write assigns
+        its own tile offsets): ``make()``'s where this writer builds it,
+        else the builder's, raising the builder's error."""
+        flight = self._flight
+        if self.builds:
+            flight['plans'] = make()
+            flight['done'].set()
+        else:
+            flight['done'].wait()
+            if flight['error'] is not None:
+                raise flight['error']
+        return [copy.copy(p) for p in flight['plans']]
+
+
 PAYLOAD_CACHE = _PayloadCache()
+
+
+def payload_cache_key(payload_key, shape, dtype):
+    """``PAYLOAD_CACHE``'s key of the payload that ``build_payload``'s
+    defaults make of a layer of ``shape`` and numpy ``dtype``, under the
+    identity key ``payload_key``. It is formed as ``_samples`` sees the
+    array (a plane as one sample, bool as uint8), without its pixels. The
+    caller owns key correctness: the same key MUST imply the same array
+    bytes."""
+    shape = tuple(shape)
+    dtype = np.dtype(np.uint8 if np.dtype(dtype) == np.bool_ else dtype)
+    return (payload_key, shape + (1,) if len(shape) == 2 else shape,
+            dtype.str, _deflate_level())
 
 
 def _pack_tag(tag, typ, values, extra_area, extra_base):
@@ -485,42 +552,29 @@ def write_cog(path, array, geotransform=None, epsg=None, nodata=None,
               metadata=None, band_descriptions=None, color_map=None,
               overview_levels=DEFAULT_OVERVIEW_LEVELS,
               tile_size=DEFAULT_TILE_SIZE, compress=True,
-              num_threads=8, payload_key=None, payload=None):
+              num_threads=8, payload=None):
     """Write ``array`` ((H, W) or (H, W, S)) as a cloud-optimized GeoTIFF.
 
     color_map: {value: (r, g, b)} for single-band uint8 palette output.
     nodata: numeric or NaN; written as the GDAL_NODATA ASCII tag.
-    payload_key: identity key for the pixel payload; when given, the
-    decimated pyramid + compressed tile blobs are reused from
-    PAYLOAD_CACHE across writes of identical pixels (tags — metadata,
-    geo keys, descriptions — are rebuilt per file). The caller owns key
-    correctness: the same key MUST imply the same array bytes.
-    payload: ``build_payload(array, ...)``, built beforehand; the write
-    then only lays it out (its levels, tile size and compression hold).
+    payload: ``build_payload(array, ...)``, built beforehand (or taken
+    from ``PAYLOAD_CACHE``; the tags are this file's); the write
+    then only lays it out (its levels, tile size and compression hold),
+    and ``array`` may be None.
 
     The write is the tracer's span ``cog.encode``.
     """
-    arr3 = _samples(array)
-    if payload is not None:
-        main = payload[0]
-        if (main.height, main.width, main.samples, main.dtype) != \
-                (*arr3.shape, arr3.dtype):
-            raise ValueError('write_cog: the payload is not of this array')
-        plans = payload
+    if payload is None:
+        plans = build_payload(array, overview_levels, tile_size, compress,
+                              num_threads)
     else:
-        # main + overview pyramid (payload reused across identical-pixel
-        # writes when the caller supplies an identity key)
-        plans = cache_key = None
-        if payload_key is not None:
-            cache_key = (payload_key, arr3.shape, arr3.dtype.str, tile_size,
-                         bool(compress), tuple(overview_levels or ()),
-                         _deflate_level())
-            plans = PAYLOAD_CACHE.get(cache_key)
-        if plans is None:
-            plans = build_payload(arr3, overview_levels, tile_size,
-                                  compress, num_threads)
-            if cache_key is not None:
-                PAYLOAD_CACHE.put(cache_key, plans)
+        if array is not None:
+            main, arr3 = payload[0], _samples(array)
+            if (main.height, main.width, main.samples, main.dtype) != \
+                    (*arr3.shape, arr3.dtype):
+                raise ValueError(
+                    'write_cog: the payload is not of this array')
+        plans = payload
     return write_payload(path, plans, geotransform=geotransform, epsg=epsg,
                          nodata=nodata, metadata=metadata,
                          band_descriptions=band_descriptions,

@@ -38,6 +38,7 @@ import torch
 
 from proteus_tpu_torch.core import constants as C
 from proteus_tpu_torch.device import to_device, to_host
+from proteus_tpu_torch.io import cog
 from proteus_tpu_torch.models.dswx import ancillary
 from proteus_tpu_torch.models.dswx.chain import DswxChainConfig
 from proteus_tpu_torch.ops.wtr_kernel import BANDS, wtr_layers_batched
@@ -318,9 +319,14 @@ _ANC_CACHE_KEYS = 4
 
 
 class _AncillaryCache:
-    """Per-grid cache of prepared ancillary products, which evicts in FIFO
-    order (the order keys were first computed, as the reference's; ROADMAP
-    Queue 2 item 1).
+    """Per-grid cache of prepared ancillary products, which evicts the
+    least recently used key, one-off keys first: a key that a second
+    read has used (a hit or a wait) outlives those that only their
+    computing read used. So a time series's grid keys (``dem_warp``,
+    ``landcover``), used by every read of the grid, stay while its
+    one-off ``shadow`` keys rotate out, also when four reads of a cold
+    grid hold six keys at once. Where no key recurs (a pass over
+    distinct grids) the order of eviction is FIFO's.
 
     A campaign's ancillary inputs (DEM, CGLS, WorldCover, shoreline) are
     static files, and every HLS revisit of an MGRS tile shares the same
@@ -351,6 +357,7 @@ class _AncillaryCache:
         self._lock = threading.Lock()
         self._entries = {}
         self._order = []
+        self._reused = set()
 
     def get(self, key, compute, device=None, move=None):
         """The value of ``key``, from ``compute()`` on its first use. With
@@ -368,8 +375,9 @@ class _AncillaryCache:
     def _flight(self, table, key, compute, kind=None):
         """The entry of ``key`` in ``table``, computed once: concurrent
         callers wait for the first one's ``compute()``. ``kind`` names a
-        value of the cache's own table (counted; its key kept in order),
-        None a copy (timed as ``anc.copy``)."""
+        value of the cache's own table (counted; a use moves its key to
+        the back of the eviction order and marks it reused), None a copy
+        (timed as ``anc.copy``)."""
         lru = kind is not None
         with self._lock:
             ent = table.get(key)
@@ -378,13 +386,19 @@ class _AncillaryCache:
                 ent = {'event': threading.Event(), 'value': None,
                        'error': None, 'copies': {}}
                 table[key] = ent
-                if lru:
-                    self._order.append(key)
-                    while len(self._order) > self.max_entries:
-                        old = self._order.pop(0)
-                        if old != key:
-                            self._entries.pop(old, None)
             if lru:
+                if not owner:
+                    self._order.remove(key)
+                    self._reused.add(key)
+                self._order.append(key)
+                while len(self._order) > self.max_entries:
+                    # the least recently used one-off key but the new one,
+                    # else the least recently used
+                    old = next((k for k in self._order[:-1]
+                                if k not in self._reused), self._order[0])
+                    self._order.remove(old)
+                    self._reused.discard(old)
+                    del self._entries[old]
                 outcome = 'miss' if owner else \
                     'hit' if ent['event'].is_set() else 'wait'
                 COUNTERS.add(f'anc.{kind}.{outcome}')
@@ -404,8 +418,9 @@ class _AncillaryCache:
             with self._lock:
                 if table.get(key) is ent:
                     del table[key]
-                if lru and key in self._order:
-                    self._order.remove(key)
+                    if lru:
+                        self._order.remove(key)
+                        self._reused.discard(key)
             ent['event'].set()
             raise
         ent['event'].set()
@@ -415,6 +430,7 @@ class _AncillaryCache:
         with self._lock:
             self._entries.clear()
             self._order.clear()
+            self._reused.clear()
 
 
 def _device_of(value):
@@ -650,8 +666,8 @@ def _read_tile(job, config, flag_debug=False, scaled=False,
                 shad_crop, shad_packed = ANCILLARY_CACHE.get(
                     skey, _shadow, device)
                 # dkey identifies the warped-DEM payload exactly (file
-                # signature + grid): the writer reuses the encoded COG
-                # blobs across revisits of the grid (io/cog.py
+                # signature + grid): the writer builds the encoded COG
+                # blobs once for the grid's revisits (io/cog.py
                 # PAYLOAD_CACHE — only the metadata tags differ)
                 return {'dem': dem_crop, 'dem_payload_key': dkey,
                         'shadow_layer': shad_crop,
@@ -665,10 +681,12 @@ def _read_tile(job, config, flag_debug=False, scaled=False,
                 lkey = ('landcover', _fsig(job.landcover_file),
                         _fsig(job.worldcover_file), gt, proj, length,
                         width, C.LANDCOVER_MASK_TYPE, forest)
+                # lkey identifies LAND's pixels as dkey the DEM's
                 return {'landcover_mask': ANCILLARY_CACHE.get(
                     lkey, lambda: ancillary.landcover_mask(
                         job.landcover_file, job.worldcover_file, gt, proj,
-                        length, width, forest, device), device)}
+                        length, width, forest, device), device),
+                        'landcover_payload_key': lkey}
         preps.append(_prep_landcover)
 
     for updates in _run_preps(preps):
@@ -685,6 +703,17 @@ def _host(a):
         else np.asarray(a)
 
 
+def _grid_claim(key, a):
+    """A claim on the COG payload of ``a``, a layer that depends only on
+    the grid (a device tensor or an array), under its ancillary cache
+    key: ``io.cog``'s key is formed from ``a``'s shape and dtype, so that
+    only the writer that builds the payload copies ``a`` to the host."""
+    dtype = torch.empty(0, dtype=a.dtype).numpy().dtype \
+        if isinstance(a, torch.Tensor) else a.dtype
+    return cog.PAYLOAD_CACHE.claim(cog.payload_cache_key(key, a.shape,
+                                                         dtype))
+
+
 @_tile_span('campaign.write')
 def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
     """Write all available layers (+ browse) for one tile.
@@ -694,7 +723,10 @@ def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
     device->host transfer overlaps the next batch's compute. In
     minimal-transfer mode (a 'PACKED_A' key), the dependent layers are
     derived here too (models/dswx/host_derive.py). Each layer's file is
-    ``C.layer_file_name``'s, written by ``product_writer.save_layer``. The
+    ``C.layer_file_name``'s, written by ``product_writer.save_layer``.
+    The DEM and LAND depend only on the grid: the first writer of a
+    grid's layer copies it out and builds its COG payload
+    (``_grid_claim``), the others lay the file out from that payload. The
     write is the tracer's span ``campaign.write``."""
     from proteus_tpu_torch.io.png import geotiff2png
     from proteus_tpu_torch.runtime import ctables
@@ -723,8 +755,11 @@ def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
                       'CLOUD'):
             save(layer, layers[layer])
     if 'landcover_mask' in image_dict:
-        with STAGE_TIMES.stage('write_cog_land'):
-            save('LAND', _host(image_dict['landcover_mask']))
+        land = image_dict['landcover_mask']
+        with STAGE_TIMES.stage('write_cog_land'), _grid_claim(
+                image_dict['landcover_payload_key'], land) as claim:
+            save('LAND', None, payload=claim.plans(
+                lambda: pw.layer_payload(_host(land))))
     if 'shadow_layer' in image_dict:
         with STAGE_TIMES.stage('write_cog_shad'):
             if 'shadow_packed' in image_dict:
@@ -735,11 +770,14 @@ def _write_tile(job, layers, image_dict, metadata, derive_opts=None):
                 shad = _host(image_dict['shadow_layer'])
             save('SHAD', shad)
     if 'dem' in image_dict:
-        with STAGE_TIMES.stage('write_d2h_dem'):
-            dem_host = _host(image_dict['dem'])
-        with STAGE_TIMES.stage('write_cog_dem_float32'):
-            save('DEM', dem_host,
-                 payload_key=image_dict.get('dem_payload_key'))
+        dem = image_dict['dem']
+        with _grid_claim(image_dict['dem_payload_key'], dem) as claim:
+            if claim.builds:
+                with STAGE_TIMES.stage('write_d2h_dem'):
+                    dem_host = _host(dem)
+            with STAGE_TIMES.stage('write_cog_dem_float32'):
+                save('DEM', None, payload=claim.plans(
+                    lambda: pw.layer_payload(dem_host)))
 
     if 'BROWSE' in layers:
         browse_tif = os.path.join(

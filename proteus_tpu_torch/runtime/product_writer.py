@@ -83,24 +83,21 @@ def layer_payload(input_array):
 def save_array(input_array, output_file, dswx_metadata_dict, geotransform,
                projection, description=None, scratch_dir='.',
                output_files_list=None, ctable=None, no_data_value=None,
-               payload_key=None, payload=None):
+               payload=None):
     """Save one generic DSWx-HLS layer as a COG.
 
-    payload_key: optional pixel-payload identity key forwarded to
-    write_cog's payload cache (campaign DEM layers are identical per
-    grid; only the metadata tags differ between products).
-    payload: ``layer_payload(input_array)``, built beforehand."""
+    payload: ``layer_payload(input_array)``, built beforehand; then
+    ``input_array`` may be None."""
     del scratch_dir  # single-pass writer needs no scratch space
     _makedirs(output_file)
-    arr = np.asarray(input_array)
     band_desc = {0: description} if description else None
-    write_cog(output_file, arr,
+    write_cog(output_file, input_array,
               geotransform=geotransform, epsg=_epsg(projection),
               nodata=no_data_value,
               metadata=_str_metadata(dswx_metadata_dict),
               band_descriptions=band_desc,
               color_map=ctables.to_rgb_map(ctable) if ctable else None,
-              payload_key=payload_key, payload=payload)
+              payload=payload)
     _finish(output_file, output_files_list)
 
 
@@ -197,7 +194,7 @@ def save_layer(layer, array, output_file, dswx_metadata_dict, geotransform,
     ``save_dswx_product``, CLOUD by ``save_cloud_layer``, BWTR by
     ``save_binary_water``, the others by ``save_array`` with their colour
     table and no-data value. The save is looked up in this module when it
-    is called; ``kwargs`` (``payload=``, ``payload_key=``,
+    is called; ``kwargs`` (``payload=``,
     ``output_files_list=``) pass through."""
     if layer in ('WTR', 'WTR-1', 'WTR-2'):
         save_dswx_product(array, layer, output_file, dswx_metadata_dict,
